@@ -1,0 +1,27 @@
+"""asltpu_torch — the PyTorch/CUDA port of ``asltpu`` for an NVIDIA H100.
+
+It sits beside the JAX package and imports nothing of it (nor JAX). The
+layout mirrors ``asltpu/``, so each module's counterpart is at the same
+path:
+
+  - :mod:`asltpu_torch.api`     — ``load_model``, ``load_clip``, ``predict``,
+    ``stream_predict``.
+  - :mod:`asltpu_torch.config`  — the five configs, field for field.
+  - :mod:`asltpu_torch.models`  — MobileNetV2 + GRU head (``mobilenet_gru``).
+  - :mod:`asltpu_torch.ops`     — preprocess (plain PyTorch and the
+    hand-written CUDA kernels of ``csrc/``), the GRU layer.
+  - :mod:`asltpu_torch.data`    — host decode, padding, prefetch to the card.
+  - :mod:`asltpu_torch.ckpt`    — weights from the JAX package or ``.pt``.
+
+Importing the package loads no CUDA code and needs no nvcc: the kernels are
+built on first use.
+"""
+
+__version__ = "0.1.0"
+
+from asltpu_torch.config import (  # noqa: F401
+    CONFIG_REGISTRY,
+    MobileNetV2GRUConfig,
+    PreprocessConfig,
+    get_config,
+)

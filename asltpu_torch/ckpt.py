@@ -1,0 +1,140 @@
+"""Carrying weights into the port: from the JAX package's variables, and
+from torchvision-layout ``.pt``/``.pth`` files. Counterpart of the torch
+import half of ``asltpu/ckpt.py`` (``import_mobilenetv2``,
+``import_torch_rnn``, ``load_torch_checkpoint``), run in the other
+direction.
+
+Layout rules (flax → torch):
+
+  - conv kernel  (kH, kW, I, O)  → weight (O, I, kH, kW)
+  - depthwise    (kH, kW, 1, C)  → weight (C, 1, kH, kW) (same permutation)
+  - BatchNorm scale/bias → weight/bias; batch_stats mean/var →
+    running_mean/running_var
+  - GRU ``l{k}_wi [F, 3H]`` / ``l{k}_wh [H, 3H]`` → ``weight_ih_l{k}`` /
+    ``weight_hh_l{k}`` transposed; ``l{k}_bi``/``l{k}_bh`` →
+    ``bias_ih_l{k}``/``bias_hh_l{k}``
+  - Dense kernel (I, O) → Linear weight (O, I)
+
+Orbax checkpoints are not read yet (ROADMAP queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from asltpu_torch.config import MobileNetV2GRUConfig, ModelConfig
+
+Variables = Mapping[str, Any]
+
+
+def _conv(w: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1)))
+
+
+def _vec(v: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def convbn_state_dict(params: Mapping, stats: Mapping, conv_key: str = "0",
+                      bn_key: str = "1") -> Dict[str, torch.Tensor]:
+    """JAX ``ConvBN`` params/batch_stats → the conv's and BN's entries."""
+    return {
+        f"{conv_key}.weight": _conv(params["conv"]["kernel"]),
+        f"{bn_key}.weight": _vec(params["bn"]["scale"]),
+        f"{bn_key}.bias": _vec(params["bn"]["bias"]),
+        f"{bn_key}.running_mean": _vec(stats["bn"]["mean"]),
+        f"{bn_key}.running_var": _vec(stats["bn"]["var"]),
+        f"{bn_key}.num_batches_tracked": torch.tensor(0),
+    }
+
+
+def inverted_residual_state_dict(params: Mapping, stats: Mapping,
+                                 prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``InvertedResidual`` → torchvision's ``conv.*`` of one block:
+    [expand ConvBN,] depthwise ConvBN, project conv, project BN."""
+    c = f"{prefix}conv"
+    sd: Dict[str, torch.Tensor] = {}
+    j = 0
+    if "expand" in params:
+        sd.update(convbn_state_dict(
+            params["expand"], stats["expand"], f"{c}.0.0", f"{c}.0.1"))
+        j = 1
+    sd.update(convbn_state_dict(
+        params["depthwise"], stats["depthwise"], f"{c}.{j}.0", f"{c}.{j}.1"))
+    sd.update(convbn_state_dict(
+        params["project"], stats["project"], f"{c}.{j + 1}", f"{c}.{j + 2}"))
+    return sd
+
+
+def mobilenetv2_state_dict(params: Mapping, stats: Mapping,
+                           prefix: str = "features.") -> Dict[str, torch.Tensor]:
+    """JAX ``MobileNetV2`` params/batch_stats → torchvision ``features.*``
+    (the inverse of ``asltpu.ckpt.import_mobilenetv2``)."""
+    sd = convbn_state_dict(
+        params["stem"], stats["stem"], f"{prefix}0.0", f"{prefix}0.1")
+    n_blocks = sum(1 for k in params if k.startswith("block"))
+    for i in range(1, n_blocks + 1):
+        sd.update(inverted_residual_state_dict(
+            params[f"block{i - 1}"], stats[f"block{i - 1}"], f"{prefix}{i}."))
+    head = n_blocks + 1
+    sd.update(convbn_state_dict(
+        params["head"], stats["head"], f"{prefix}{head}.0", f"{prefix}{head}.1"))
+    return sd
+
+
+def gru_head_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
+    """JAX ``GRUHead`` params → ``gru.*`` (``torch.nn.GRU`` names) + ``fc.*``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k in range(num_layers):
+        sd[f"gru.weight_ih_l{k}"] = _vec(np.asarray(params[f"l{k}_wi"]).T)
+        sd[f"gru.weight_hh_l{k}"] = _vec(np.asarray(params[f"l{k}_wh"]).T)
+        sd[f"gru.bias_ih_l{k}"] = _vec(params[f"l{k}_bi"])
+        sd[f"gru.bias_hh_l{k}"] = _vec(params[f"l{k}_bh"])
+    sd["fc.weight"] = _vec(np.asarray(params["fc"]["kernel"]).T)
+    sd["fc.bias"] = _vec(params["fc"]["bias"])
+    return sd
+
+
+def state_dict_from_jax(cfg: ModelConfig, variables: Variables) -> Dict[str, torch.Tensor]:
+    """The port model's ``state_dict`` from the JAX model's variables, given
+    as a numpy tree (``jax.device_get(model.variables)``: ``params`` plus
+    ``batch_stats``)."""
+    if not isinstance(cfg, MobileNetV2GRUConfig):
+        raise NotImplementedError(
+            f"weights of {type(cfg).__name__} are not ported yet "
+            "(ROADMAP queue 1, items 7-10)"
+        )
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = mobilenetv2_state_dict(params["backbone"], stats["backbone"])
+    sd.update(gru_head_state_dict(params["head"], cfg.gru_layers))
+    return sd
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint file as a state dict (bare, or wrapped as
+    ``{"state_dict": ...}``)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return obj
+
+
+def load_torch_checkpoint(module: nn.Module, path: str) -> None:
+    """Load a torchvision-layout ``.pt``/``.pth`` into ``module`` in place.
+    As in the JAX importer, a file without ``fc.*`` (a backbone plus GRU
+    checkpoint) keeps the module's own classifier; any other missing or
+    unexpected key raises."""
+    result = module.load_state_dict(load_state_dict(path), strict=False)
+    missing = [
+        k for k in result.missing_keys
+        if not (k.startswith("fc.") or k.endswith("num_batches_tracked"))
+    ]
+    if missing or result.unexpected_keys:
+        raise KeyError(
+            f"checkpoint {path} does not fit {type(module).__name__}: "
+            f"missing {missing}, unexpected {result.unexpected_keys}"
+        )

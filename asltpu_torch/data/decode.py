@@ -1,0 +1,310 @@
+"""Host video decode: the one stage that stays on the host CPU. Counterpart
+of the OpenCV path of ``asltpu/data/decode.py``; it produces the same bytes.
+
+- Sampled-only decode: the uniform temporal sampling indices are computed
+  first, and only those frames are converted and staged; the others are
+  decoded with ``grab()`` and skipped.
+- Staging on the host: frames are resized (aspect-preserving) and cropped to
+  the fixed staging resolution, so the device sees one shape. The device
+  does the rest (:mod:`asltpu_torch.ops.preprocess`).
+
+OpenCV is imported when a clip is decoded, not when this module is. The
+native C++ and libavcodec batch decoders of the JAX package are not ported
+yet (ROADMAP queue 1, item 5): ``make_decode_pool`` refuses those backends.
+Clip records (WLASL segments and signer boxes) arrive with the WLASL loader
+(ROADMAP queue 1, item 11); ``decode_sampled_frames`` already takes both.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from asltpu_torch.config import PreprocessConfig
+from asltpu_torch.data.pad import pad_to_batch
+from asltpu_torch.ops.preprocess import resize_plan, uniform_sample_indices
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            "video decode needs OpenCV (the cv2 module), which is not installed"
+        ) from e
+    return cv2
+
+
+def decode_sampled_frames(
+    path: str,
+    num_frames: int,
+    staging_size: Tuple[int, int],
+    host_resize_short: int = 0,
+    frame_start: int = 1,
+    frame_end: int = -1,
+    bbox: Optional[Tuple[int, int, int, int]] = None,
+    staging_format: str = "rgb",
+) -> np.ndarray:
+    """Decode exactly the uniformly-sampled frames of a video segment.
+
+    ``frame_start``/``frame_end`` are the WLASL 1-based inclusive segment
+    bounds (-1 → EOF); ``bbox`` is an optional [x0, y0, x1, y1] signer crop
+    applied before staging. Returns uint8 RGB [T, Hs, Ws, 3], or packed I420
+    planes [T, Hs·3/2, Ws] with ``staging_format="yuv420"``. Frames beyond a
+    premature EOF repeat the last good frame.
+    """
+    cv2 = _cv2()
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video: {path}")
+    try:
+        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        if total <= 0:
+            # Some containers don't report counts; fall back to full decode.
+            return _decode_all_then_sample(
+                cap, num_frames, staging_size, host_resize_short,
+                frame_start, frame_end, bbox, staging_format,
+            )
+        first = max(frame_start - 1, 0)
+        last = total if frame_end < 0 else min(frame_end, total)
+        if first >= last:
+            # Stale segment metadata (start past EOF): use the full video.
+            first, last = 0, total
+        seg = max(last - first, 1)
+        want = first + uniform_sample_indices(seg, num_frames)
+        pos = 0
+        if first > 8:
+            # Seek near the segment instead of grab()-ing from frame 0; cv2
+            # decodes forward from the nearest keyframe.
+            if cap.set(cv2.CAP_PROP_POS_FRAMES, first):
+                got = int(cap.get(cv2.CAP_PROP_POS_FRAMES))
+                if 0 <= got <= first:
+                    pos = got
+                else:  # unreliable seek — fall back to sequential
+                    cap.set(cv2.CAP_PROP_POS_FRAMES, 0)
+        hs, ws = staging_size
+        frame_shape = (
+            (hs * 3 // 2, ws) if staging_format == "yuv420" else (hs, ws, 3)
+        )
+        out = np.empty((num_frames, *frame_shape), dtype=np.uint8)
+        want_set: dict = {}
+        for out_i, frame_i in enumerate(want):
+            want_set.setdefault(int(frame_i), []).append(out_i)
+        last = None
+        max_needed = max(want_set)
+        while pos <= max_needed:
+            if pos in want_set:
+                ok, frame = cap.read()  # decode + convert
+                if not ok:
+                    break
+                frame = _stage(frame, staging_size, host_resize_short, bbox,
+                               staging_format)
+                for out_i in want_set[pos]:
+                    out[out_i] = frame
+                last = frame
+            else:
+                if not cap.grab():  # decode-only, skip conversion
+                    break
+            pos += 1
+        if last is None:
+            raise IOError(f"no decodable frames in {path}")
+        # Fill any frames past a premature EOF with the last good frame.
+        for frame_i, out_is in want_set.items():
+            if frame_i >= pos:
+                for out_i in out_is:
+                    out[out_i] = last
+        return out
+    finally:
+        cap.release()
+
+
+def _decode_all_then_sample(
+    cap, num_frames, staging_size, host_resize_short: int = 0,
+    frame_start: int = 1, frame_end: int = -1, bbox=None,
+    staging_format: str = "rgb",
+) -> np.ndarray:
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    if not frames:
+        raise IOError("no decodable frames")
+    first = max(frame_start - 1, 0)
+    last = len(frames) if frame_end < 0 else min(frame_end, len(frames))
+    frames = frames[first:last] or frames
+    idx = uniform_sample_indices(len(frames), num_frames)
+    return np.stack([
+        _stage(frames[i], staging_size, host_resize_short, bbox,
+               staging_format)
+        for i in idx
+    ])
+
+
+def _stage(
+    frame_bgr: np.ndarray,
+    staging_size: Tuple[int, int],
+    host_resize_short: int = 0,
+    bbox=None,
+    staging_format: str = "rgb",
+) -> np.ndarray:
+    """BGR→RGB (or I420) + aspect-preserving resize + center crop to the
+    fixed staging resolution.
+
+    The short-side target is ``host_resize_short`` when set (transfer-thin
+    mode: staging == final crop, the device only normalizes) and
+    ``min(staging_size)`` otherwise; in the default configuration the staged
+    frame composes with the device crop to exactly resize-short → center
+    crop (center crops nest)."""
+    cv2 = _cv2()
+    if bbox is not None:
+        x0, y0, x1, y1 = (int(v) for v in bbox)
+        h, w = frame_bgr.shape[:2]
+        x0, y0 = max(x0, 0), max(y0, 0)
+        x1, y1 = min(x1, w), min(y1, h)
+        if x1 > x0 and y1 > y0:
+            frame_bgr = frame_bgr[y0:y1, x0:x1]
+    hs, ws = staging_size
+    short = host_resize_short or min(hs, ws)
+    h, w = frame_bgr.shape[:2]
+    rh, rw = resize_plan((h, w), short)
+    # Clamp up so the staging crop always fits (extreme aspect ratios).
+    rh, rw = max(rh, hs), max(rw, ws)
+    if (rh, rw) != (h, w):
+        frame_bgr = cv2.resize(
+            frame_bgr, (rw, rh), interpolation=cv2.INTER_LINEAR
+        )
+    y0, x0 = (rh - hs) // 2, (rw - ws) // 2
+    staged = frame_bgr[y0 : y0 + hs, x0 : x0 + ws]
+    if staging_format == "yuv420":
+        # Packed I420 planes: 1.5 bytes/px on the wire; the device converts.
+        return cv2.cvtColor(np.ascontiguousarray(staged),
+                            cv2.COLOR_BGR2YUV_I420)
+    return staged[:, :, ::-1]  # BGR → RGB
+
+
+def decode_clip(
+    path: str, cfg: PreprocessConfig, num_frames: Optional[int] = None
+) -> np.ndarray:
+    """Video path → staged uint8 frames [T, Hs, Ws, 3] (or packed I420
+    [T, Hs·3/2, Ws]) ready for the device preprocess."""
+    return decode_sampled_frames(
+        path, num_frames or cfg.num_frames, cfg.staging_size,
+        cfg.host_resize_short, staging_format=cfg.staging_format,
+    )
+
+
+def _limit_cv2_threads():
+    _cv2().setNumThreads(0)
+
+
+class DecodePool:
+    """Worker pool decoding clips concurrently; feeds the Prefetcher for
+    batched/streaming inference.
+
+    ``use_processes=True`` decodes in worker processes (started with
+    ``spawn``) instead of threads, so decode keeps going while the consumer
+    thread holds the interpreter lock."""
+
+    def __init__(
+        self,
+        cfg: PreprocessConfig,
+        num_workers: int = 4,
+        use_processes: bool = False,
+    ):
+        self.cfg = cfg
+        if use_processes:
+            self._pool = ProcessPoolExecutor(
+                max_workers=num_workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_limit_cv2_threads,
+            )
+        else:
+            # One decode per pool slot; OpenCV's own threading would only
+            # oversubscribe the cores.
+            _limit_cv2_threads()
+            self._pool = ThreadPoolExecutor(
+                max_workers=num_workers, thread_name_prefix="asltpu-torch-decode"
+            )
+
+    def submit(self, path: str):
+        return self._pool.submit(decode_clip, path, self.cfg)
+
+    def map_batches(
+        self,
+        paths: Sequence,
+        batch_size: int,
+        on_error: str = "raise",
+    ):
+        """Yield ``(frames [B, T, ...] u8, kept_indices)`` in submission
+        order; the final short batch is padded by repeating the last clip
+        (``kept_indices`` carries the true members).
+
+        ``on_error="skip"`` drops undecodable clips with a warning instead
+        of failing the stream; a batch whose clips all fail is skipped.
+        """
+        if on_error not in ("raise", "skip"):
+            raise ValueError(f"on_error must be raise|skip, got {on_error}")
+        # Keep at most a few batches of decodes in flight so a fast decoder
+        # cannot pile a whole corpus of frames into host memory.
+        window = max(batch_size * 4, 8)
+        futures: list = []
+        next_submit = 0
+
+        def top_up(upto):
+            nonlocal next_submit
+            while next_submit < min(upto, len(paths)):
+                futures.append(self.submit(paths[next_submit]))
+                next_submit += 1
+
+        top_up(window)
+        for i in range(0, len(paths), batch_size):
+            top_up(i + batch_size + window)
+            chunk = futures[i : i + batch_size]
+            # Release consumed futures: a Future retains its result array.
+            futures[i : i + batch_size] = [None] * len(chunk)
+            clips, kept = [], []
+            for j, f in enumerate(chunk):
+                try:
+                    clips.append(f.result())
+                    kept.append(i + j)
+                except Exception:
+                    if on_error == "raise":
+                        raise
+                    import logging
+
+                    logging.getLogger("asltpu_torch.decode").warning(
+                        "skipping undecodable clip %s", paths[i + j],
+                        exc_info=True,
+                    )
+            if not clips:
+                continue
+            yield pad_to_batch(np.stack(clips), batch_size), kept
+
+    def shutdown(self):
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+
+def make_decode_pool(
+    cfg: PreprocessConfig, num_workers: int = 4, backend: str = "auto",
+):
+    """Decode-pool factory. ``backend``: "thread", or "process" (also what
+    "auto" means until the native decoder is ported): worker processes keep
+    decoding while the consumer holds the interpreter lock. "native" and
+    "av" (the JAX package's C++ batch decoders) are not ported yet."""
+    if backend in ("native", "av"):
+        raise NotImplementedError(
+            f"decode backend {backend!r} is not ported yet "
+            "(ROADMAP queue 1, item 5: the native/av ctypes decode backends)"
+        )
+    if backend not in ("auto", "process", "thread"):
+        raise ValueError(
+            f"unknown decode backend {backend!r}; expected one of "
+            "auto/process/thread"
+        )
+    return DecodePool(cfg, num_workers=num_workers,
+                      use_processes=backend != "thread")

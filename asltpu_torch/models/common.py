@@ -1,0 +1,64 @@
+"""Shared building blocks: ``ConvBN``, seeded initialisation, and merging
+time into the batch. Counterpart of ``asltpu/models/common.py``."""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from asltpu_torch.ops.recurrent import GRU
+
+
+relu6 = nn.ReLU6
+
+
+class ConvBN(nn.Sequential):
+    """Conv → BatchNorm → ReLU6, laid out as torchvision's
+    ``Conv2dNormActivation``: child ``0`` the conv, ``1`` the BN, ``2`` the
+    activation. Padding is torch-style symmetric ``k//2`` (the JAX
+    package's default), BN eps 1e-5 and torch momentum 0.1 (flax 0.9).
+    Every ConvBN of MobileNetV2 ends in ReLU6; its linear project conv is
+    a plain conv + BN in torchvision's layout."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, groups: int = 1):
+        super().__init__(
+            nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2,
+                      groups=groups, bias=False),
+            nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
+            relu6(),
+        )
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random initialisation, in place: convs kaiming-normal over
+    fan-out and BN as identity (torchvision's MobileNetV2), linears as
+    ``nn.Linear``'s default, GRUs U(-1/√H, 1/√H)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+            elif isinstance(m, nn.Linear):
+                bound = 1.0 / math.sqrt(m.in_features)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, GRU):
+                m.reset_parameters(generator)
+
+
+def merge_time_into_batch(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """[B, T, ...] → ([B·T, ...], (B, T)) — the per-frame backbone runs all
+    frames as one large batch."""
+    b, t = x.shape[:2]
+    return x.reshape((b * t,) + tuple(x.shape[2:])), (b, t)
+
+
+def split_time_from_batch(x: torch.Tensor, bt: Tuple[int, int]) -> torch.Tensor:
+    b, t = bt
+    return x.reshape((b, t) + tuple(x.shape[1:]))

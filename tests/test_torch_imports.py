@@ -1,0 +1,105 @@
+"""asltpu_torch stands alone: no JAX, no asltpu, no nvcc at import; the
+entry points default to the card; CPU tensors never launch a kernel."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_WALK = """
+import importlib, pkgutil, sys
+import asltpu_torch
+for m in pkgutil.walk_packages(asltpu_torch.__path__, "asltpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(
+    m for m in sys.modules
+    if m == "asltpu" or m.startswith("asltpu.")
+    or m.split(".")[0] in ("jax", "jaxlib", "flax")
+)
+assert not bad, bad
+print("walked", sum(m.startswith("asltpu_torch") for m in sys.modules))
+"""
+
+
+def _run(code, env=None):
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+
+
+def test_package_imports_no_jax_and_no_asltpu():
+    proc = _run(_WALK)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15
+
+
+def test_kernel_module_imports_without_nvcc():
+    env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
+    proc = _run(
+        "import asltpu_torch.ops.preprocess_kernels as k\n"
+        "from asltpu_torch.ops import _build\n"
+        "assert k.preprocess_rgb.launches == 0 == k.preprocess_yuv420.launches\n"
+        "try:\n"
+        "    _build.nvcc()\n"
+        "except RuntimeError as e:\n"
+        "    print('no nvcc:', e)\n",
+        env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        assert "no nvcc" in proc.stdout
+
+
+def test_load_model_defaults_to_the_card():
+    from asltpu_torch import api
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.load_model("mobilenet_gru", width_mult=0.35, gru_hidden=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.resolve_device("cuda")
+    assert api.resolve_device("cpu").type == "cpu"
+
+
+def test_cpu_tensors_leave_launch_counters_at_zero():
+    from asltpu_torch.config import PreprocessConfig
+    from asltpu_torch.ops import preprocess_kernels as k
+
+    rng = np.random.default_rng(0)
+    rgb_cfg = PreprocessConfig(num_frames=2, staging_size=(40, 48),
+                               resize_short=36, crop=32)
+    yuv_cfg = PreprocessConfig(num_frames=2, staging_size=(32, 32),
+                               resize_short=32, crop=32, staging_format="yuv420")
+    rgb = torch.from_numpy(rng.integers(0, 256, (1, 2, 40, 48, 3), np.uint8))
+    yuv = torch.from_numpy(rng.integers(0, 256, (1, 2, 48, 32), np.uint8))
+    before = (k.preprocess_rgb.launches, k.preprocess_yuv420.launches)
+    out_rgb = k.preprocess_rgb(rgb, rgb_cfg)
+    out_yuv = k.preprocess_yuv420(yuv, yuv_cfg)
+    assert (k.preprocess_rgb.launches, k.preprocess_yuv420.launches) == before
+    torch.testing.assert_close(out_rgb, k.preprocess_rgb_plain(rgb, rgb_cfg),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out_yuv, k.preprocess_yuv420_plain(yuv, yuv_cfg),
+                               rtol=0, atol=0)
+    assert out_rgb.shape == (1, 2, 32, 32, 3) and out_rgb.dtype == torch.bfloat16
+
+
+def test_unported_names_and_backends_say_so():
+    from asltpu_torch import api
+    from asltpu_torch.config import PreprocessConfig
+    from asltpu_torch.data.decode import make_decode_pool
+
+    for name in ("pose_bilstm", "resnet_transformer", "i3d", "two_stream"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            api.build_module(api.get_config(name))
+    for backend in ("native", "av"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_decode_pool(PreprocessConfig(), backend=backend)
+    with pytest.raises(ValueError, match="unknown decode backend"):
+        make_decode_pool(PreprocessConfig(), backend="gpu")
