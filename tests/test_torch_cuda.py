@@ -13,12 +13,19 @@ import torch
 
 from asltpu_torch import api
 from asltpu_torch.config import PreprocessConfig
+from asltpu_torch.models.mobilenet_fused import fused_backbone_apply, fused_layers
+from asltpu_torch.ops import mbconv_kernels as mb
 from asltpu_torch.ops import preprocess_kernels as k
 
 pytestmark = pytest.mark.cuda
 
 F32_ATOL = 1e-4
 BF16_ATOL = {"rgb": 2e-2, "yuv420": 4e-2}  # one bf16 ulp at |x|≈2.6 / ≈4
+# fp32 MBConv: the kernel and the plain version sum in other orders.
+MBCONV_F32_RTOL = 1e-4
+# A fused layer against the module's bf16 layer: other rounding points (BN
+# folded before the bf16 conv), as in tests/test_torch_mbconv.py.
+FEATURE_RTOL = 2 ** -5
 
 
 @pytest.fixture
@@ -115,3 +122,94 @@ def test_predict_on_the_card_matches_the_cpu(card, lane, pp):
     want_ids, want = api.predict(on_cpu, frames)
     np.testing.assert_array_equal(ids, want_ids)
     np.testing.assert_allclose(logits, want, atol=1e-3)
+
+
+def _bf16_ulp(m: float) -> float:
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+def _mbconv_args(n, h, w, cin, ce, cout, seed, device):
+    """x [n, h, w, cin] and folded fp32 weights at the scales of a trained
+    block: fan-in normal weights, biases N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, std):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * std).astype(np.float32)).to(device)
+
+    return (t((n, h, w, cin), 1.0), t((cin, ce), (2 / cin) ** 0.5), t((ce,), 0.1),
+            t((3, 3, ce), (2 / 9) ** 0.5), t((ce,), 0.1),
+            t((ce, cout), (1 / ce) ** 0.5), t((cout,), 0.1))
+
+
+# The seven main-path shapes (H = W, Cin, Ce, Cout), and a ragged one: H≠W,
+# Ce not a multiple of the kernel's 16-channel chunk, rows not a multiple
+# of the tile.
+MBCONV_SHAPES = [
+    (56, 56, 24, 144, 24), (28, 28, 32, 192, 32), (14, 14, 64, 384, 64),
+    (14, 14, 64, 384, 96), (14, 14, 96, 576, 96), (7, 7, 160, 960, 160),
+    (7, 7, 160, 960, 320), (13, 11, 16, 100, 16),
+]
+
+
+@pytest.mark.parametrize("h,w,cin,ce,cout", MBCONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mbconv_kernel_matches_plain(card, h, w, cin, ce, cout, dtype):
+    x, *weights = _mbconv_args(3, h, w, cin, ce, cout, 7, card)
+    x = x.to(dtype)
+    before = mb.fused_mbconv_s1.launches
+    got = mb.fused_mbconv_s1(x, *weights)
+    torch.cuda.synchronize()
+    assert mb.fused_mbconv_s1.launches == before + 1
+    want = mb.fused_mbconv_s1_plain(x, *weights)
+    assert got.shape == want.shape == (3, h, w, cout) and got.dtype == dtype
+    peak = float(want.float().abs().max())
+    atol = peak * MBCONV_F32_RTOL if dtype == torch.float32 else _bf16_ulp(peak)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_mbconv_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x, *weights = _mbconv_args(1, 8, 8, 16, 96, 16, 8, card)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        mb.fused_mbconv_s1(x.half(), *weights)
+    with pytest.raises(ValueError, match="float32"):
+        mb.fused_mbconv_s1(x, weights[0].bfloat16(), *weights[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        mb.fused_mbconv_s1(x.transpose(1, 2), *weights)
+    with pytest.raises(ValueError, match="shape"):
+        mb.fused_mbconv_s1(x[..., :8].contiguous(), *weights)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _mbconv_args(1, 8, 8, 8192, 16, 16, 8, card)
+        mb.fused_mbconv_s1(*big)
+
+
+def test_fused_backbone_matches_module_on_the_card(card):
+    """Layer by layer, with BN statistics calibrated on a seeded batch (a
+    train-mode pass with momentum 1): at the seeded init the features
+    vanish, and end to end the calibrated random net amplifies rounding
+    chaotically, so each fused layer is held to the module's own layer on
+    the same input."""
+    model = api.load_model("mobilenet_gru", seed=3, num_classes=7, gru_hidden=32)
+    frames, calib = (torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (4, 64, 48, 3)).astype(np.float32)).to(card) for seed in (9, 10))
+    features = model.module.features
+    for m in features.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    with torch.no_grad():
+        features.train()(calib.permute(0, 3, 1, 2).to(torch.bfloat16))
+    features.eval()
+    before = mb.fused_mbconv_s1.launches
+    got = fused_backbone_apply(features, frames)
+    torch.cuda.synchronize()
+    assert mb.fused_mbconv_s1.launches == before + 12
+    assert got.shape == (4, 1280) and got.dtype == torch.bfloat16
+    with torch.inference_mode():
+        y = frames.to(torch.bfloat16)
+        for i, layer in enumerate(fused_layers(features)):
+            want = features[i](y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float()
+            y = layer(y)
+            peak = float(want.abs().max())
+            assert peak > 0.1, i
+            torch.testing.assert_close(y.float(), want, rtol=0,
+                                       atol=FEATURE_RTOL * peak, msg=f"layer {i}")

@@ -43,8 +43,12 @@ def test_kernel_module_imports_without_nvcc():
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     proc = _run(
         "import asltpu_torch.ops.preprocess_kernels as k\n"
+        "import asltpu_torch.ops.mbconv_kernels as mb\n"
+        "import asltpu_torch.models.mobilenet_fused\n"
         "from asltpu_torch.ops import _build\n"
         "assert k.preprocess_rgb.launches == 0 == k.preprocess_yuv420.launches\n"
+        "assert mb.fused_mbconv_s1.launches == 0\n"
+        "assert {'mbconv', 'preprocess'} <= set(_build.all_sources())\n"
         "try:\n"
         "    _build.nvcc()\n"
         "except RuntimeError as e:\n"
@@ -88,6 +92,19 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     torch.testing.assert_close(out_yuv, k.preprocess_yuv420_plain(yuv, yuv_cfg),
                                rtol=0, atol=0)
     assert out_rgb.shape == (1, 2, 32, 32, 3) and out_rgb.dtype == torch.bfloat16
+
+
+def test_cpu_fused_backbone_leaves_mbconv_counter_at_zero():
+    from asltpu_torch.models.mobilenet_fused import fused_backbone_apply
+    from asltpu_torch.models.mobilenetv2 import MobileNetV2
+    from asltpu_torch.ops import mbconv_kernels as mb
+
+    frames = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((1, 32, 24, 3)).astype(np.float32))
+    before = mb.fused_mbconv_s1.launches
+    feats = fused_backbone_apply(MobileNetV2(0.35).eval(), frames)
+    assert mb.fused_mbconv_s1.launches == before == 0
+    assert feats.shape == (1, 1280) and feats.dtype == torch.bfloat16
 
 
 def test_unported_names_and_backends_say_so():
