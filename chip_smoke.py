@@ -17,13 +17,25 @@ phase printing one JSON line:
    config, ``predict`` on a seeded batch of 32 clips × 16 frames of 256²
    RGB; the rgb kernel must have launched, and the logits must match the
    same model with ``use_pallas=False`` (plain preprocess on the card).
-   Then device-only times by CUDA events: a predict with each model, and
-   its three stages (preprocess, backbone, GRU head) one by one.
+   Then the comparison on logits that vary: the same lane with an fp32
+   model (fp32 preprocess out) whose BN is calibrated on a seeded batch,
+   its state copied into the ``use_pallas=False`` twin, both fed 32 clips
+   of smooth moving patterns that differ from clip to clip; the clip-to-
+   clip spread of the logits must be at least 1e-3, kernel and plain
+   logits within 1e-3 of that spread, and the same top-1 wherever the
+   plain margin exceeds twice their difference. Then device-only times by
+   CUDA events (bf16 model): a predict with each model, and its three
+   stages (preprocess, backbone, GRU head) one by one.
 4. yuv420 lane — the same with the transfer-thin I420 config (224² staging).
-5. kernels_mbconv — the fused MBConv kernel against its plain version at the
-   seven block shapes of the full-width backbone on 512 frames of 224², in
-   bf16 and fp32; kernel and plain times, the bound, and (information only)
-   the port's cuDNN ``InvertedResidual`` of the same shape.
+5. kernels_mbconv — the fused MBConv kernels against their plain version at
+   the seven block shapes of the full-width backbone on 512 frames of 224²:
+   bf16 x runs the TF32 tensor-core kernel (``tf32_wmma``, within one bf16
+   ulp of the largest output), fp32 x the CUDA-core kernel (``fp32_fma``,
+   1e-4 relative); per shape the tile each took, the bf16 kernel's and the
+   plain version's times, the bound (operations at the bf16 tensor-core
+   peak), the first kernel's time on the same card model (``earlier_ms``)
+   and (information only) the port's cuDNN ``InvertedResidual`` of the
+   same shape.
 6. fused_backbone — the rgb lane's batch through preprocess (rgb kernel),
    ``fused_backbone_apply`` (12 fused MBConv launches) and the GRU head,
    against ``predict`` on the same batch: features, logits and top-1. Then,
@@ -66,6 +78,12 @@ BF16_ATOL = {"rgb": 2e-2, "yuv420": 4e-2}  # one bf16 ulp at |x|≈2.6 / ≈4
 # Logits of the same bf16 model with the kernel vs the plain preprocess: the
 # two preprocess outputs differ by at most a bf16 rounding here and there.
 LANE_LOGIT_ATOL = 1e-2
+# The lanes' comparison on varied clips (fp32, calibrated BN): the logits
+# must vary from clip to clip by at least VARIED_SPREAD_MIN (max |logits −
+# their mean over clips|), and the fp32 kernel and plain preprocess (1e-6
+# apart) must give logits within VARIED_ERR_RTOL of that spread.
+VARIED_SPREAD_MIN = 1e-3
+VARIED_ERR_RTOL = 1e-3
 # H100 SXM data-sheet peaks.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
@@ -80,8 +98,14 @@ MBCONV_SHAPES = [
     (14, 64, 384, 96, 1), (14, 96, 576, 96, 2), (7, 160, 960, 160, 2),
     (7, 160, 960, 320, 1),
 ]
+# The first (CUDA-core, fp32 FMA) kernel's bf16 times at those shapes, ms,
+# N = 512, on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, row 3 per
+# shape).
+MBCONV_EARLIER_MS = [5.516395, 2.209434, 1.945686, 2.662811, 4.672517,
+                     2.717293, 6.251677]
 MBCONV_REPS = 10
 MBCONV_F32_RTOL = 1e-4  # the kernel and the plain version sum in other orders
+MBCONV_PATH = {torch.bfloat16: "tf32_wmma", torch.float32: "fp32_fma"}
 # Fused vs cuDNN backbone (and layer vs layer) in bf16: BN folded before
 # the bf16 conv rounds at other places than conv-then-BN; measured on the
 # CPU: 0.0095 of the largest feature (tests/test_torch_mbconv.py), 0.004-
@@ -278,7 +302,9 @@ def mbconv_bound(n, h, cin, ce, cout):
 
 
 def phase_mbconv():
-    """The fused MBConv kernel at the seven main-path shapes, 512 frames."""
+    """The fused MBConv kernels at the seven main-path shapes, 512 frames:
+    bf16 x on the TF32 tensor-core kernel (the main path's, timed), fp32 x
+    on the CUDA-core kernel, each against the plain version."""
     from asltpu_torch.models.mobilenetv2 import InvertedResidual
     from asltpu_torch.ops import mbconv_kernels as mb
 
@@ -297,7 +323,8 @@ def phase_mbconv():
             peak = float(want.float().abs().max())
             atol = _bf16_ulp(peak) if dtype == torch.bfloat16 else peak * MBCONV_F32_RTOL
             err = float((got.float() - want.float()).abs().max())
-            errs[str(dtype).split(".")[1]] = {"max_abs_err": err, "atol": atol,
+            errs[str(dtype).split(".")[1]] = {"path": MBCONV_PATH[dtype],
+                                              "max_abs_err": err, "atol": atol,
                                               "max_abs_want": peak}
             if not err <= atol:
                 raise AssertionError(f"fused_mbconv_s1 disagrees at {h}², "
@@ -316,8 +343,10 @@ def phase_mbconv():
         ms = min(k1, k2)
         rows.append({
             "shape": [n, h, h, cin], "ce": ce, "cout": cout,
-            "launches_per_backbone": count, "tile": list(mb.tile_plan(h, h, cin, cout)),
-            "check": errs, "ms": ms, "ms_runs": [k1, k2],
+            "launches_per_backbone": count, "path": MBCONV_PATH[torch.bfloat16],
+            "tile": {"tf32_wmma": dataclasses.asdict(mb.tf32_tile_plan(h, h, cin, cout)),
+                     "fp32_fma": dict(zip(("rows", "cout"), mb.tile_plan(h, h, cin, cout)))},
+            "check": errs, "ms": ms, "ms_runs": [k1, k2], "earlier_ms": MBCONV_EARLIER_MS[i],
             "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
             "bytes": nbytes, "operations": ops, "bound_ms": bound,
             "bound_by": bound_by, "share_of_bound": bound / ms,
@@ -326,7 +355,8 @@ def phase_mbconv():
         del x, wts, block, nchw
         torch.cuda.empty_cache()
     weighted = {key: sum(r["launches_per_backbone"] * r[key] for r in rows)
-                for key in ("ms", "plain_ms", "bound_ms", "cudnn_block_ms_info")}
+                for key in ("ms", "plain_ms", "bound_ms", "cudnn_block_ms_info",
+                            "earlier_ms")}
     by = {}
     for r in rows:
         by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + (
@@ -510,6 +540,83 @@ def phase_fused_backbone():
     return launches
 
 
+def _varied_clips(seed, batch, t, staged_shape):
+    """uint8 clips of smooth moving patterns, as ``_write_video`` draws them,
+    with a phase, frequency, direction, brightness and contrast of their
+    own, staged as RGB ``[B, T, H, W, 3]`` or packed I420 ``[B, T, H·3/2,
+    W]`` (the Y plane, then the U and V planes at half resolution). i.i.d.
+    noise would pool to nearly the same features for every clip."""
+    rgb = len(staged_shape) == 3
+    h, w = staged_shape[:2] if rgb else (staged_shape[0] * 2 // 3, staged_shape[1])
+    rng = np.random.default_rng(seed)
+    out = np.empty((batch, t, *staged_shape), np.uint8)
+    tt = np.arange(t, dtype=np.float32)[:, None, None, None]
+
+    def pattern(hh, ww, step, p):
+        yy, xx = np.mgrid[0:hh, 0:ww].astype(np.float32) * step
+        ramp = (np.cos(p["theta"]) * xx + np.sin(p["theta"]) * yy)[None, :, :, None]
+        img = p["level"] + p["amp"] * np.sin(p["freq"] * ramp + p["phase"] + 0.3 * tt)
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    for b in range(batch):
+        p = {"phase": rng.uniform(0, 2 * np.pi, 3), "freq": rng.uniform(0.02, 0.08, 3),
+             "theta": rng.uniform(0, np.pi), "level": rng.uniform(70, 185),
+             "amp": rng.uniform(30, 70)}
+        if rgb:
+            out[b] = pattern(h, w, 1, p)
+        else:
+            y = pattern(h, w, 1, p)[..., 0].reshape(t, -1)
+            uv = pattern(h // 2, w // 2, 2, p)
+            out[b] = np.concatenate([y, uv[..., 1].reshape(t, -1),
+                                     uv[..., 2].reshape(t, -1)], 1).reshape(t, *staged_shape)
+    return out
+
+
+def _lane_varied(pp_overrides, staged_shape):
+    """Kernel vs plain preprocess on logits that vary: an fp32 model (fp32
+    preprocess out, TF32 off) with BN calibrated on a seeded batch, its
+    state copied into the ``use_pallas=False`` twin, both fed clips that
+    differ from clip to clip. Returns the comparison's numbers; raises when
+    the logits barely vary or the two disagree."""
+    from asltpu_torch import api
+    from asltpu_torch.ops.preprocess import preprocess_clip
+
+    pp = dict(pp_overrides, out_dtype="float32")
+    model = api.load_model("mobilenet_gru", seed=SEED, compute_dtype="float32",
+                           preprocess=pp)
+    t = model.cfg.preprocess.num_frames
+    calib = torch.from_numpy(_varied_clips(SEED + 3, 8, t, staged_shape)).to(model.device)
+    with torch.inference_mode():
+        calib = preprocess_clip(calib, model.cfg.preprocess).flatten(0, 1)
+    calibrate_bn(model.module.features, calib.permute(0, 3, 1, 2))
+    plain = api.load_model("mobilenet_gru", seed=SEED, compute_dtype="float32",
+                           preprocess=dict(pp, use_pallas=False))
+    plain.module.load_state_dict(model.module.state_dict())
+    frames = _varied_clips(SEED + 4, BATCH, t, staged_shape)
+    ids, logits = api.predict(model, frames)
+    plain_ids, plain_logits = api.predict(plain, frames)
+    del model, plain, calib
+    torch.cuda.empty_cache()
+    spread = float(np.abs(plain_logits - plain_logits.mean(0)).max())
+    err = float(np.abs(logits - plain_logits).max())
+    top2 = np.sort(plain_logits, axis=-1)
+    margin = top2[:, -1] - top2[:, -2]
+    covered = margin > 2 * err
+    result = {
+        "compute_dtype": "float32", "bn": "calibrated", "logit_spread": spread,
+        "spread_min": VARIED_SPREAD_MIN, "max_logit_err_vs_plain": err,
+        "err_rtol_of_spread": VARIED_ERR_RTOL,
+        "distinct_top1": len(set(plain_ids.tolist())),
+        "min_top1_margin": float(margin.min()),
+        "top1_rule_clips": int(covered.sum()),
+    }
+    if (spread < VARIED_SPREAD_MIN or err > VARIED_ERR_RTOL * spread
+            or not (ids[covered] == plain_ids[covered]).all()):
+        raise AssertionError(f"kernel vs plain preprocess on varied clips: {result}, "
+                             f"top-1 {ids.tolist()} vs {plain_ids.tolist()}")
+    return result
+
+
 def _lane(name, pp_overrides, staged_shape):
     """Drive one lane through the public API; returns the launch counts of
     the main-path predict."""
@@ -544,6 +651,7 @@ def _lane(name, pp_overrides, staged_shape):
     if not (ids == plain_ids).all() or err > LANE_LOGIT_ATOL:
         raise AssertionError(f"{name} lane: kernel and plain preprocess disagree "
                              f"(max logit err {err}, top-1 {ids} vs {plain_ids})")
+    varied = _lane_varied(pp_overrides, staged_shape)
 
     x = torch.from_numpy(frames).to(model.device)
     fn, plain_fn = model.predict_fn(), plain_model.predict_fn()
@@ -568,6 +676,7 @@ def _lane(name, pp_overrides, staged_shape):
         "logits_finite": True, "top1_equal_plain": True,
         "max_logit_err_vs_plain": err, "atol": LANE_LOGIT_ATOL,
         "min_top1_margin": float((top2[:, -1] - top2[:, -2]).min()),
+        "distinct_top1": len(set(plain_ids.tolist())), "varied_clips": varied,
         "device_ms_per_batch": ms, "device_clips_per_s": BATCH / ms * 1e3,
         "plain_device_ms_per_batch": plain_ms,
         "plain_device_clips_per_s": BATCH / plain_ms * 1e3,

@@ -142,19 +142,26 @@ def _mbconv_args(n, h, w, cin, ce, cout, seed, device):
             t((ce, cout), (1 / ce) ** 0.5), t((cout,), 0.1))
 
 
-# The seven main-path shapes (H = W, Cin, Ce, Cout), and a ragged one: H≠W,
-# Ce not a multiple of the kernel's 16-channel chunk, rows not a multiple
-# of the tile.
+# The seven main-path shapes (H = W, Cin, Ce, Cout), a ragged one (H≠W, Ce
+# not a multiple of the kernels' 16-channel chunk, rows not a multiple of
+# the fp32 kernel's tile), padded ones (Cin and Cout not multiples of 8: the
+# TF32 kernel's K and N padding and its channel-by-channel x loads), with
+# and without the residual, and one whose Ce and Cout are not multiples of
+# 4 (the TF32 kernel's float-by-float weight loads).
 MBCONV_SHAPES = [
     (56, 56, 24, 144, 24), (28, 28, 32, 192, 32), (14, 14, 64, 384, 64),
     (14, 14, 64, 384, 96), (14, 14, 96, 576, 96), (7, 7, 160, 960, 160),
-    (7, 7, 160, 960, 320), (13, 11, 16, 100, 16),
+    (7, 7, 160, 960, 320), (13, 11, 16, 100, 16), (9, 9, 12, 72, 20),
+    (9, 9, 12, 72, 12), (6, 10, 8, 50, 18),
 ]
 
 
 @pytest.mark.parametrize("h,w,cin,ce,cout", MBCONV_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mbconv_kernel_matches_plain(card, h, w, cin, ce, cout, dtype):
+    """bf16 x runs the TF32 tensor-core kernel (one bf16 ulp of the largest
+    output), fp32 x the CUDA-core kernel (1e-4 relative); each call is one
+    launch."""
     x, *weights = _mbconv_args(3, h, w, cin, ce, cout, 7, card)
     x = x.to(dtype)
     before = mb.fused_mbconv_s1.launches
@@ -178,9 +185,18 @@ def test_mbconv_wrapper_refuses_what_the_kernel_does_not_take(card):
         mb.fused_mbconv_s1(x.transpose(1, 2), *weights)
     with pytest.raises(ValueError, match="shape"):
         mb.fused_mbconv_s1(x[..., :8].contiguous(), *weights)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = _mbconv_args(1, 8, 8, 8192, 16, 16, 8, card)
-        mb.fused_mbconv_s1(*big)
+    for dtype in (torch.float32, torch.bfloat16):
+        big, *big_weights = _mbconv_args(1, 8, 8, 8192, 16, 16, 8, card)
+        with pytest.raises(ValueError, match="shared memory"):
+            mb.fused_mbconv_s1(big.to(dtype), *big_weights)
+    # The TF32 kernel keeps all of Cout in its warps' fragments.
+    wide, *wide_weights = _mbconv_args(1, 2, 64, 16, 96, 4096, 8, card)
+    with pytest.raises(ValueError, match="accumulators"):
+        mb.fused_mbconv_s1(wide.bfloat16(), *wide_weights)
+    before = mb.fused_mbconv_s1.launches
+    with pytest.raises(ValueError, match="shape"):
+        mb.fused_mbconv_s1(x[..., :8].contiguous().bfloat16(), *weights)
+    assert mb.fused_mbconv_s1.launches == before
 
 
 def test_fused_backbone_matches_module_on_the_card(card):

@@ -1,6 +1,7 @@
 """The fused MBConv slice against the JAX package on the CPU:
 ``asltpu_torch.ops.mbconv_kernels`` (``fold_bn``, the plain version of the
-fused block, the wrapper on CPU tensors, the kernel's tile plan) and
+fused block, the wrapper on CPU tensors, the two kernels' tile plans, the
+TF32 kernel's operand roundings emulated on the plain version) and
 ``asltpu_torch.models.mobilenet_fused.fused_backbone_apply`` composed with
 the GRU head. The JAX side runs its Pallas kernel in interpret mode, as
 ``tests/unit/test_mbconv_pallas.py`` does; inputs are made with numpy and
@@ -11,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from asltpu import ckpt as jckpt
 from asltpu.models import mobilenet_fused as jfused
@@ -133,8 +135,9 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("h,cin,ce,cout", MAIN_SHAPES)
 def test_tile_plan_fits_the_kernel(h, cin, ce, cout):
-    """The limits mbconv.cu checks before it launches: every output of a
-    tile has an accumulator, and two blocks share an SM's memory."""
+    """The fp32 kernel's plan, within the limits mbconv.cu checks before it
+    launches: every output of a tile has an accumulator, and two blocks
+    share an SM's memory."""
     tr, cot = k.tile_plan(h, h, cin, cout)
     assert 1 <= tr <= h and 1 <= cot <= cout
     assert tr * h * cot <= k._THREADS * k._MAX_ACC
@@ -142,6 +145,118 @@ def test_tile_plan_fits_the_kernel(h, cin, ce, cout):
     assert tr == -(-h // -(-h // tr))  # rows spread evenly over the tiles
     with pytest.raises(ValueError, match="shared memory"):
         k.tile_plan(h, h, 8192, cout)
+
+
+# The main-path shapes as (H, W, Cin, Cout), then ragged ones: H ≠ W, and
+# Cin and Cout not multiples of 8 (the K and N padding of the TF32 tiles).
+PLAN_SHAPES = [(h, h, cin, cout) for h, cin, _, cout in MAIN_SHAPES] + [
+    (13, 11, 16, 16), (9, 9, 12, 20), (5, 7, 3, 40)]
+
+
+@pytest.mark.parametrize("h,w,cin,cout", PLAN_SHAPES)
+def test_tf32_tile_plan_fits_the_kernel(h, w, cin, cout):
+    """The TF32 kernel's plan, within the limits mbconv.cu checks before it
+    launches (fragments a warp, shared memory), with every wmma pointer on
+    a multiple of 8 floats and every leading dimension a multiple of 4."""
+    plan = k.tf32_tile_plan(h, w, cin, cout)
+    lay = k.tf32_layout(plan.rows, w, cin, cout)
+    assert 1 <= plan.rows <= h
+    assert plan.frags_per_warp == -(-lay["frags"] // k._WARPS) <= k._MAX_FRAG
+    assert plan.smem_bytes == 4 * lay["total"]
+    budget = {2: k._SMEM_BUDGET, 1: k._SMEM_ONE_BLOCK}[plan.blocks_per_sm]
+    assert plan.smem_bytes <= budget
+    offsets = [lay[key] for key in
+               ("es", "ds", "w1", "w2", "dw", "b1", "b2", "mask", "col", "total")]
+    assert all(o % 8 == 0 for o in offsets) and offsets == sorted(offsets)
+    assert all(lay[key] % 4 == 0
+               for key in ("ld_x", "ld_e", "ld_w1", "ld_w2", "ld_stage"))
+    assert lay["ld_x"] >= cin and lay["ld_w2"] >= cout
+    assert lay["cout_covered"] >= cout  # Cout is never split
+    assert plan.rows == -(-h // -(-h // plan.rows))  # rows spread evenly
+    if (h, cin, cout) in {(s[0], s[1], s[3]) for s in MAIN_SHAPES}:
+        assert plan.blocks_per_sm == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        k.tf32_tile_plan(h, w, 8192, cout)
+    with pytest.raises(ValueError, match="accumulators"):
+        k.tf32_tile_plan(h, 64, cin, 4096)
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round fp32 to 10 mantissa bits, ties away from
+    zero (add half of the dropped 13 bits' range, clear them)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.bfloat16().float()
+
+
+def _plain_tf32(x, w1, b1, dw, b2, w2, b3, use_res=True, rnd=_tf32):
+    """``fused_mbconv_s1_plain`` in fp32 with the TF32 kernel's operand
+    roundings ``rnd``: ``w1``, ``w2`` and the depthwise output (the
+    project's A)."""
+    n, h, w, cin = x.shape
+    ce, cout = w1.shape[1], w2.shape[1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    e = torch.clamp(xp @ rnd(w1) + b1, 0.0, 6.0)
+    ring = torch.zeros((h + 2, w + 2, 1))
+    ring[1:-1, 1:-1] = 1.0
+    e = e * ring
+    taps = dw.reshape(9, ce)
+    acc = torch.zeros((n, h, w, ce))
+    for dr in range(3):
+        for dc in range(3):
+            acc = acc + e[:, dr:dr + h, dc:dc + w, :] * taps[dr * 3 + dc]
+    out = rnd(torch.clamp(acc + b2, 0.0, 6.0)) @ rnd(w2) + b3
+    return out + x.float() if use_res and cin == cout else out
+
+
+def _scaled_args(n, h, cin, ce, cout, seed):
+    """x [n, h, h, cin] bf16 and folded fp32 weights at ``chip_smoke.py``'s
+    scales: fan-in normal weights, biases N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, std):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32))
+
+    return (t((n, h, h, cin), 1.0).bfloat16(), t((cin, ce), (2 / cin) ** 0.5),
+            t((ce,), 0.1), t((3, 3, ce), (2 / 9) ** 0.5), t((ce,), 0.1),
+            t((ce, cout), (1 / ce) ** 0.5), t((cout,), 0.1))
+
+
+@pytest.mark.parametrize("h,cin,ce,cout", MAIN_SHAPES)
+def test_tf32_operands_keep_the_bf16_check(h, cin, ce, cout):
+    """The TF32 kernel's arithmetic, emulated: its operand roundings move the
+    fp32 result by under a quarter of one bf16 ulp of the largest output, so
+    after the one rounding to bf16 it stays within one ulp of the plain
+    version and of the JAX kernel (interpret mode), the check the kernel
+    is held to on the card."""
+    x, *wts = _scaled_args(2, h, cin, ce, cout, seed=10 + h + cout)
+    want32 = k.fused_mbconv_s1_plain(x.float(), *wts)
+    got32 = _plain_tf32(x, *wts)
+    ulp = _bf16_ulp(float(want32.abs().max()))
+    assert float((got32 - want32).abs().max()) < ulp / 4
+    got = got32.bfloat16().float()
+    plain = k.fused_mbconv_s1_plain(x, *wts).float()
+    jax_out = np.asarray(jmb.fused_mbconv_s1(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), *(w.numpy() for w in wts),
+        row_tile=h, interpret=True).astype(jnp.float32))
+    assert float((got - plain).abs().max()) <= ulp
+    np.testing.assert_allclose(got.numpy(), jax_out, atol=ulp, rtol=0)
+
+
+@pytest.mark.parametrize("h,cin,ce,cout", MAIN_SHAPES)
+def test_bf16_operands_would_move_the_result_more(h, cin, ce, cout):
+    """Why the kernel's products are TF32 and not bf16: with bf16 operands
+    the same emulation moves the fp32 result by over a quarter of one bf16
+    ulp of the largest output (0.36–0.62 at these shapes), too close to the
+    one-ulp check once the final rounding adds its own half ulp."""
+    x, *wts = _scaled_args(2, h, cin, ce, cout, seed=10 + h + cout)
+    want32 = k.fused_mbconv_s1_plain(x.float(), *wts)
+    ulp = _bf16_ulp(float(want32.abs().max()))
+    moved = float((_plain_tf32(x, *wts, rnd=_bf16) - want32).abs().max())
+    assert moved > ulp / 4
 
 
 @pytest.fixture(scope="module")
