@@ -10,9 +10,14 @@ phase printing one JSON line:
    kernel build time and ptxas's register counts; TF32 is switched off so
    the fp32 comparisons are fp32.
 2. kernels — every kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at a ragged one, in bf16 and fp32; kernel and
-   plain times by CUDA events around runs of back-to-back calls, beside the
-   least time the card could take.
+   the main path's shapes, at a ragged one and at a tail one (rgb crop 50,
+   yuv420 width 52: rows that are not 16-byte multiples), in bf16 and fp32;
+   the main rgb shape must be bit-exact in bf16. Kernel and plain times by
+   CUDA events around runs of back-to-back calls, beside the least time the
+   card could take (``share_of_bound``), the first kernels' times on the
+   same card model (``earlier_ms``) and, as information, a device-to-device
+   ``copy_`` of the same total bytes (``copy_ms_info``: the card's practical
+   streaming rate, not a yardstick of the same function).
 3. rgb lane — ``load_model("mobilenet_gru")`` at full width and the default
    config, ``predict`` on a seeded batch of 32 clips × 16 frames of 256²
    RGB; the rgb kernel must have launched, and the logits must match the
@@ -116,6 +121,9 @@ FUSED_LOGIT_ATOL = 5e-2  # the bf16 slice bound of tests/test_torch_api.py
 # weights applied rows then columns: 6 mul + 3 add) + multiply-add normalize;
 # yuv420 3 products + 3 adds + clamp (2) + the luma/chroma offsets.
 OPS_PER_VALUE = {"rgb": 11, "yuv420": 9}
+# The first (one thread per output pixel) preprocess kernels' bf16 times at
+# the main shapes, ms, on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6).
+PREPROCESS_EARLIER_MS = {"rgb": 0.162533, "yuv420": 0.118643}
 RGB_LANE = {}
 YUV_LANE = {"staging_size": (224, 224), "resize_short": 224,
             "host_resize_short": 256, "staging_format": "yuv420"}
@@ -211,6 +219,11 @@ def phase_kernels():
         ("yuv420", "ragged", _uint8(rng, (4, 16, 300, 200), dev),
          PreprocessConfig(staging_size=(200, 200), resize_short=200, crop=200,
                           staging_format="yuv420")),
+        ("rgb", "tail", _uint8(rng, (4, 16, 64, 58, 3), dev),
+         PreprocessConfig(staging_size=(64, 58), resize_short=56, crop=50)),
+        ("yuv420", "tail", _uint8(rng, (4, 16, 78, 52), dev),
+         PreprocessConfig(staging_size=(52, 52), resize_short=52, crop=52,
+                          staging_format="yuv420")),
     ]
     wrap = {"rgb": (k.preprocess_rgb, k.preprocess_rgb_plain),
             "yuv420": (k.preprocess_yuv420, k.preprocess_yuv420_plain)}
@@ -230,6 +243,9 @@ def phase_kernels():
                            "max_abs_err": err, "atol": atol})
             if err > atol:
                 raise AssertionError(f"{lane} kernel disagrees: {checks[-1]}")
+            if (lane, shape_name, out_dtype) == ("rgb", "main", "bfloat16") and err:
+                raise AssertionError(f"rgb kernel not bit-exact at the main shape: "
+                                     f"{checks[-1]}")
             if shape_name == "main" and out_dtype == main_rgb.out_dtype:
                 max_err[lane] = err
 
@@ -250,12 +266,21 @@ def phase_kernels():
         k1 = time_ms(lambda: kernel(x, cfg), KERNEL_REPS)
         k2 = time_ms(lambda: kernel(x, cfg), KERNEL_REPS)
         p2 = time_ms(lambda: plain(x, cfg), PLAIN_REPS)
+        # Information: one copy_ reading and writing the same total bytes.
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = time_ms(lambda: dst.copy_(src), KERNEL_REPS)
+        del src, dst
+        bound = max(bytes_ms, ops_ms)
         timing[lane] = {
             "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "earlier_ms": PREPROCESS_EARLIER_MS[lane],
             "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
             "bytes": nbytes, "input_bytes": in_bytes,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound / min(k1, k2),
+            "copy_ms_info": copy_ms,
             "library_ms": None,
         }
     # Information only: F.interpolate + crop + normalize is three or more
@@ -769,6 +794,7 @@ def main() -> int:
             "max_abs_err": max_err[lane], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "share_of_bound": t["share_of_bound"], "copy_ms_info": t["copy_ms_info"],
         })
     kernels.append({
         "name": "fused_mbconv_s1", "route": "cuda", "source": "asltpu_torch/csrc/mbconv.cu",
@@ -777,6 +803,7 @@ def main() -> int:
         "ms": mbconv["ms"], "plain_ms": mbconv["plain_ms"],
         "bound_ms": mbconv["bound_ms"], "bound_by": mbconv["bound_by"],
         "library_ms": None,
+        "share_of_bound": mbconv["bound_ms"] / mbconv["ms"],
         "per": "sums over the 12 launches of one backbone call at 512 frames "
                "(per shape: phase kernels_mbconv)",
     })

@@ -48,6 +48,7 @@ def _frames(seed, shape, device):
 @pytest.mark.parametrize("staging,short,crop", [
     ((64, 64), 56, 48), ((64, 80), 56, 48), ((48, 64), 56, 48),
     ((256, 256), 256, 224), ((240, 320), 256, 224), ((60, 44), 40, 40),
+    ((64, 58), 56, 50), ((60, 44), 50, 50),
 ])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_rgb_kernel_matches_plain(card, staging, short, crop, out_dtype):
@@ -65,7 +66,7 @@ def test_rgb_kernel_matches_plain(card, staging, short, crop, out_dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("size", [48, 64, 224])
+@pytest.mark.parametrize("size", [48, 64, 224, 52, 200])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_yuv420_kernel_matches_plain(card, size, out_dtype):
     cfg = PreprocessConfig(num_frames=3, staging_size=(size, size),
@@ -82,6 +83,77 @@ def test_yuv420_kernel_matches_plain(card, size, out_dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("staging,short,crop", [
+    ((256, 256), 256, 224), ((240, 320), 256, 224), ((64, 58), 56, 50),
+    ((60, 44), 50, 50), ((480, 640), 96, 80),
+])
+@pytest.mark.parametrize("out_bytes", [2, 4])
+def test_rgb_band_plan_counts_the_kernels_shared_memory(card, staging, short, crop,
+                                                       out_bytes):
+    """The plan chooses its bands by its own count of the shared memory the
+    C side lays out; the two must agree."""
+    plan = k.rgb_band_plan(staging, short, crop, out_bytes)
+    assert k._lib().asl_preprocess_rgb_smem_bytes(
+        crop, plan.stage_rows, plan.pitch, int(out_bytes == 2)) == plan.smem_bytes
+
+
+def test_rgb_kernel_is_bit_exact_at_the_main_shape(card):
+    cfg = PreprocessConfig(num_frames=4)
+    frames = _frames(4, (2, 4, 256, 256, 3), card)
+    got = k.preprocess_rgb(frames, cfg)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, k.preprocess_rgb_plain(frames, cfg))
+
+
+def _unaligned(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data_ptr() is ``offset`` bytes past
+    a 256-byte boundary."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
+
+
+@pytest.mark.parametrize("lane,offset", [("rgb", 3), ("rgb", 8), ("yuv420", 1),
+                                         ("yuv420", 4)])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_kernels_take_unaligned_inputs(card, lane, offset, out_dtype):
+    if lane == "rgb":
+        cfg = PreprocessConfig(num_frames=3, staging_size=(256, 256), out_dtype=out_dtype)
+        x = _frames(5, (2, 3, 256, 256, 3), card)
+        kernel, plain, atol = k.preprocess_rgb, k.preprocess_rgb_plain, BF16_ATOL["rgb"]
+    else:
+        cfg = PreprocessConfig(num_frames=3, staging_size=(224, 224), resize_short=224,
+                               out_dtype=out_dtype, staging_format="yuv420")
+        x = _frames(6, (2, 3, 336, 224), card)
+        kernel, plain = k.preprocess_yuv420, k.preprocess_yuv420_plain
+        atol = BF16_ATOL["yuv420"]
+    x = _unaligned(x, offset)
+    got = kernel(x, cfg)
+    torch.cuda.synchronize()
+    atol = F32_ATOL if out_dtype == "float32" else atol
+    torch.testing.assert_close(got.float(), plain(x, cfg).float(), atol=atol, rtol=0)
+
+
+def test_kernels_take_more_than_65535_frames(card):
+    """The grids are persistent and 1-D: frames are not bounded by a grid
+    dimension."""
+    n = 65_600
+    rgb = PreprocessConfig(num_frames=n, staging_size=(8, 8), resize_short=8,
+                           crop=8, out_dtype="float32")
+    frames = _frames(7, (1, n, 8, 8, 3), card)
+    torch.testing.assert_close(k.preprocess_rgb(frames, rgb),
+                               k.preprocess_rgb_plain(frames, rgb),
+                               atol=F32_ATOL, rtol=0)
+    yuv = PreprocessConfig(num_frames=n, staging_size=(8, 8), resize_short=8,
+                           crop=8, out_dtype="float32", staging_format="yuv420")
+    planes = _frames(8, (1, n, 12, 8), card)
+    torch.testing.assert_close(k.preprocess_yuv420(planes, yuv),
+                               k.preprocess_yuv420_plain(planes, yuv),
+                               atol=F32_ATOL, rtol=0)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     rgb_cfg = PreprocessConfig(num_frames=2, staging_size=(64, 64),
                                resize_short=56, crop=48)
@@ -95,6 +167,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="out_dtype"):
         k.preprocess_rgb(frames, PreprocessConfig(
             staging_size=(64, 64), resize_short=56, crop=48, out_dtype="float16"))
+    # The tap tables of a 7300-pixel crop alone exceed a block's shared memory.
+    big = torch.zeros((1, 1, 7300, 7300, 3), dtype=torch.uint8, device=card)
+    before = k.preprocess_rgb.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        k.preprocess_rgb(big, PreprocessConfig(staging_size=(7300, 7300),
+                                               resize_short=7300, crop=7300))
+    assert k.preprocess_rgb.launches == before
+    del big
     planes = _frames(3, (1, 2, 96, 64), card)
     with pytest.raises(ValueError, match="identity-resize"):
         k.preprocess_yuv420(planes, PreprocessConfig(

@@ -205,19 +205,47 @@ def test_yuv420_plain_bf16_matches_pallas():
 # ---------------------------------------------------------------------------
 
 
-def _emulate_rgb_kernel(frames, cfg):
+def _emulate_rgb_kernel(frames, cfg, base=0):
+    """The rgb kernel tile by tile: each band's input rows staged into a
+    buffer of ``stage_rows × pitch`` bytes at the offsets the kernel uses
+    (the span's start modulo 16, for an input whose first byte sits at
+    ``base`` modulo 16), then every output value from 4 taps read there with
+    band-relative rows, in fp32 (where the kernel fuses a product into a
+    sum it rounds once less, within F32_ATOL)."""
     b, t, hs, ws, _ = frames.shape
-    idx, w = trm.resize_crop_taps((hs, ws), cfg.resize_short, cfg.crop)
-    _, _, consts = tk._rgb_constants(torch.device("cpu"), (hs, ws),
-                                     cfg.resize_short, cfg.crop, cfg.mean, cfg.std)
-    k = consts.numpy()
-    x = frames.astype(np.float32)
-    r0, r1 = x[:, :, idx[0]], x[:, :, idx[1]]  # [B, T, crop, Ws, 3]
-    wy = [w[0][:, None, None], w[1][:, None, None]]
-    col_lo = wy[0] * r0[:, :, :, idx[2]] + wy[1] * r1[:, :, :, idx[2]]
-    col_hi = wy[0] * r0[:, :, :, idx[3]] + wy[1] * r1[:, :, :, idx[3]]
-    v = w[2][:, None] * col_lo + w[3][:, None] * col_hi
-    return (v * k[:3] + k[3:]).astype(np.float32)
+    crop = cfg.crop
+    out_bytes = cfg.out_torch_dtype.itemsize
+    plan = tk.rgb_band_plan((hs, ws), cfg.resize_short, crop, out_bytes)
+    tables = tk._rgb_tables((hs, ws), cfg.resize_short, crop, plan)
+    _, k = tk._rgb_constants(torch.device("cpu"), (hs, ws), cfg.resize_short,
+                             crop, out_bytes, cfg.mean, cfg.std)
+    rows = tables[:4 * crop].reshape(crop, 4)
+    cols = tables[4 * crop:8 * crop].reshape(crop, 4)
+    wy, wx = rows[:, 2:].view(np.float32), cols[:, 2:].view(np.float32)
+    rb = 3 * ws
+    flat = frames.reshape(b * t, hs * rb)
+    out = np.empty((b * t, crop, crop, 3), np.float32)
+    ch = np.arange(3)
+    for f in range(b * t):
+        for band, (y0, ny) in enumerate(plan.bands):
+            buf = np.zeros(plan.stage_rows * plan.pitch, np.uint8)
+            offs = []
+            for s in range(ny):
+                src = (y0 + s) * rb + 3 * plan.col0
+                off = (base + f * hs * rb + src) % 16
+                assert off + plan.span <= plan.pitch
+                buf[s * plan.pitch + off:s * plan.pitch + off + plan.span] = (
+                    flat[f, src:src + plan.span])
+                offs.append(s * plan.pitch + off)
+            for oy in range(band * plan.rows, min((band + 1) * plan.rows, crop)):
+                rl, rh = offs[rows[oy, 0] - y0], offs[rows[oy, 1] - y0]
+                taps = [buf[r + cols[:, i, None] + ch].astype(np.float32)
+                        for r in (rl, rh) for i in (0, 1)]  # p00 p01 p10 p11
+                col_lo = wy[oy, 0] * taps[0] + wy[oy, 1] * taps[2]
+                col_hi = wy[oy, 0] * taps[1] + wy[oy, 1] * taps[3]
+                v = wx[:, 0, None] * col_lo + wx[:, 1, None] * col_hi
+                out[f, oy] = v * k[:3] + k[3:]
+    return out.reshape(b, t, crop, crop, 3)
 
 
 def _emulate_yuv_kernel(planes, cfg):
@@ -244,7 +272,78 @@ def test_rgb_kernel_arithmetic_matches_plain(staging, short, crop):
                                atol=F32_ATOL)
 
 
-@pytest.mark.parametrize("size", [48, 64, 224])
+@pytest.mark.parametrize("staging,short,crop,base", [
+    ((60, 44), 40, 40, 3), ((64, 58), 56, 50, 0), ((64, 58), 56, 50, 9),
+    ((240, 320), 256, 224, 5),
+])
+def test_rgb_kernel_staging_at_any_alignment(staging, short, crop, base):
+    """Unaligned inputs and rows (132 B and 174 B rows, frames at odd
+    offsets) and a crop whose output rows are not 16-byte multiples."""
+    cfg = TCfg(num_frames=2, staging_size=staging, resize_short=short,
+               crop=crop, out_dtype="float32")
+    frames = _frames(10, (1, 2, *staging, 3))
+    plain = _np(tk.preprocess_rgb_plain(torch.from_numpy(frames), cfg))
+    np.testing.assert_allclose(_emulate_rgb_kernel(frames, cfg, base), plain,
+                               atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_rgb_kernel_arithmetic_is_exact_at_the_main_shape(out_dtype):
+    """At the main path's identity resize every tap sum is exact, so the
+    kernel's arithmetic gives the plain version's bits."""
+    cfg = TCfg(num_frames=1, out_dtype=out_dtype)
+    frames = _frames(11, (1, 1, 256, 256, 3))
+    plain = tk.preprocess_rgb_plain(torch.from_numpy(frames), cfg)
+    got = torch.from_numpy(_emulate_rgb_kernel(frames, cfg)).to(plain.dtype)
+    assert torch.equal(got, plain)
+
+
+# (staging, resize_short, crop): the main path, chip_smoke.py's ragged case,
+# every RGB_CASES shape, two crop-50 shapes and a 5x downscale.
+PLAN_CASES = [((256, 256), 256, 224), ((240, 320), 256, 224), *RGB_CASES,
+              ((64, 58), 56, 50), ((60, 44), 50, 50), ((480, 640), 96, 80)]
+
+
+@pytest.mark.parametrize("staging,short,crop", PLAN_CASES)
+def test_rgb_band_plan_covers_every_tap(staging, short, crop):
+    plan = tk.rgb_band_plan(staging, short, crop)
+    idx, w = tk.rgb_taps(staging, short, crop)
+    assert plan.pitch % 16 == 0 and plan.pitch >= plan.span + 15
+    assert plan.smem_bytes == (4 * tk.rgb_smem_table_words(crop) + 256 * 24 * 2
+                               + 2 * plan.stage_rows * plan.pitch)
+    fp32 = tk.rgb_band_plan(staging, short, crop, 4)
+    assert fp32.smem_bytes - plan.smem_bytes == 256 * 24 * 2 and fp32.bands == plan.bands
+    assert plan.smem_bytes <= 227 * 1024
+    assert len(plan.bands) == -(-crop // plan.rows)
+    for band, (y0, ny) in enumerate(plan.bands):
+        assert 1 <= ny <= plan.stage_rows
+        for oy in range(band * plan.rows, min((band + 1) * plan.rows, crop)):
+            assert y0 <= idx[0, oy] <= idx[1, oy] < y0 + ny
+    assert 3 * (idx[2:4].max() - plan.col0 + 1) == plan.span
+    assert idx[2:4].min() == plan.col0
+    # Only taps that weigh nothing were moved.
+    ref_idx, ref_w = trm.resize_crop_taps(staging, short, crop)
+    np.testing.assert_array_equal(w, ref_w)
+    np.testing.assert_array_equal(idx[w != 0], ref_idx[ref_w != 0])
+
+
+def test_rgb_band_plan_at_the_main_shape():
+    """The main path stages 16 rows of the 672-byte centre per band, 14
+    bands a frame, and every group of 8 columns is unit taps."""
+    plan = tk.rgb_band_plan((256, 256), 256, 224)
+    assert (plan.rows, plan.stage_rows, plan.col0, plan.span, plan.pitch) == (
+        16, 16, 16, 672, 688)
+    assert plan.bands == tuple((16 + 16 * i, 16) for i in range(14))
+    tables = tk._rgb_tables((256, 256), 256, 224, plan)
+    assert (tables[8 * 224:8 * 224 + 28] == 1).all()
+
+
+def test_rgb_band_plan_refuses_what_no_band_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.rgb_band_plan((7300, 7300), 7300, 7300)
+
+
+@pytest.mark.parametrize("size", [48, 64, 224, 52])
 def test_yuv420_kernel_arithmetic_matches_plain(size):
     cfg = TCfg(num_frames=1, staging_size=(size, size), resize_short=size,
                crop=size, out_dtype="float32", staging_format="yuv420")
