@@ -7,11 +7,15 @@ path:
   - :mod:`asltpu_torch.api`     — ``load_model``, ``load_clip``, ``predict``,
     ``stream_predict``.
   - :mod:`asltpu_torch.config`  — the five configs, field for field.
-  - :mod:`asltpu_torch.models`  — MobileNetV2 + GRU head (``mobilenet_gru``).
+  - :mod:`asltpu_torch.models`  — MobileNetV2 + GRU head (``mobilenet_gru``),
+    ResNet-18 + transformer head (``resnet_transformer``).
   - :mod:`asltpu_torch.ops`     — preprocess (plain PyTorch and the
     hand-written CUDA kernels of ``csrc/``), the GRU layer.
-  - :mod:`asltpu_torch.data`    — host decode, padding, prefetch to the card.
+  - :mod:`asltpu_torch.data`    — host decode, padding, prefetch to the card,
+    synthetic videos.
   - :mod:`asltpu_torch.ckpt`    — weights from the JAX package or ``.pt``.
+  - :mod:`asltpu_torch.benchmark` — the port's bench
+    (``python -m asltpu_torch.benchmark``).
 
 Importing the package loads no CUDA code and needs no nvcc: the kernels are
 built on first use.

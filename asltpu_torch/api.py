@@ -1,9 +1,10 @@
 """Public API: ``load_model``, ``load_clip``, ``predict`` and
-``stream_predict``. Counterpart of ``asltpu/api.py`` for the north-star
-config ``mobilenet_gru``.
+``stream_predict``. Counterpart of ``asltpu/api.py`` for the configs ported
+so far: ``mobilenet_gru`` and ``resnet_transformer``.
 
 Everything after host decode runs on the device: preprocess (a hand-written
-CUDA kernel on the card), MobileNetV2 over the B·T frames, the GRU head.
+CUDA kernel on the card), the per-frame backbone over the B·T frames
+(MobileNetV2 or ResNet-18), the temporal head (GRU or transformer).
 The entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly running on the CPU.
 
@@ -25,12 +26,13 @@ from asltpu_torch.config import (
     MobileNetV2GRUConfig,
     ModelConfig,
     PreprocessConfig,
+    ResNet18TransformerConfig,
     get_config,
 )
 from asltpu_torch.data.decode import decode_clip, make_decode_pool
-from asltpu_torch.data.prefetch import Prefetcher
-from asltpu_torch.models.common import init_weights
-from asltpu_torch.models.video import MobileNetV2GRU
+from asltpu_torch.data.prefetch import Prefetcher, resolve_device
+from asltpu_torch.models.common import cast_for_compute, init_weights
+from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
 from asltpu_torch.ops.preprocess import preprocess_clip
 
 
@@ -53,9 +55,29 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             gru_layers=cfg.gru_layers,
             dropout=cfg.dropout,
         )
+    if isinstance(cfg, ResNet18TransformerConfig):
+        return ResNet18Transformer(
+            num_classes=cfg.num_classes,
+            num_frames=cfg.preprocess.num_frames,
+            d_model=cfg.d_model,
+            num_heads=cfg.num_heads,
+            num_tx_layers=cfg.num_tx_layers,
+            mlp_ratio=cfg.mlp_ratio,
+            dropout=cfg.dropout,
+        )
     raise NotImplementedError(
-        f"{cfg.name} is not ported yet (ROADMAP queue 1, items 7-10)"
+        f"{cfg.name} is not ported yet (ROADMAP queue 1, items 7, 9, 10)"
     )
+
+
+def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
+    """The parts of a built model that run fp32 under any compute dtype,
+    besides its norms: the GRU head of ``mobilenet_gru`` (the recurrence
+    amplifies low-precision error) and the transformer head's classifier,
+    which reads the CLS output in fp32."""
+    if isinstance(module, MobileNetV2GRU):
+        return (module.gru, module.fc)
+    return (module.head.fc,)
 
 
 @dataclasses.dataclass
@@ -79,16 +101,6 @@ class Model:
         return fn
 
 
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` means the card; asking for a card where there is none raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
-
-
 def load_model(
     name: str,
     checkpoint: Optional[str] = None,
@@ -99,9 +111,12 @@ def load_model(
     """Build (and optionally restore) a model by config name.
 
     Weights are random from ``torch.Generator().manual_seed(seed)``, or read
-    from a torchvision-layout ``.pt``/``.pth`` ``checkpoint``. The backbone
-    is cast to ``compute_dtype`` and laid out channels_last; the GRU head
-    stays fp32. ``device`` defaults to the card.
+    from a torchvision-layout ``.pt``/``.pth`` ``checkpoint``. Convs,
+    linears and attention are cast to ``compute_dtype``
+    (:func:`asltpu_torch.models.common.cast_for_compute`); every BatchNorm
+    and LayerNorm keeps fp32 parameters and statistics, and so do the parts
+    :func:`fp32_modules` names. The module is laid out channels_last.
+    ``device`` defaults to the card.
     """
     dev = resolve_device(device)
     cfg = get_config(name, **overrides)
@@ -111,12 +126,12 @@ def load_model(
         if not checkpoint.endswith((".pt", ".pth")):
             raise NotImplementedError(
                 "orbax checkpoints are not read by the port yet "
-                "(ROADMAP queue 1, item 5); pass a .pt/.pth file"
+                "(ROADMAP queue 1, item 11); pass a .pt/.pth file"
             )
         from asltpu_torch import ckpt
 
         ckpt.load_torch_checkpoint(module, checkpoint)
-    module.features.to(cfg.compute_torch_dtype)
+    cast_for_compute(module, cfg.compute_torch_dtype, fp32_modules(module))
     module.to(device=dev, memory_format=torch.channels_last).eval()
     return Model(cfg=cfg, module=module, device=dev)
 

@@ -1,0 +1,465 @@
+"""The port's benchmark: throughput of each ported family on each of its wire
+lanes, from staged uint8 frames and from mp4 files to logits.
+
+    python -m asltpu_torch.benchmark                      # on the card
+    python -m asltpu_torch.benchmark --device cpu --batch 2 --frames 2 \\
+        --staging 40 --crop 32 --clip-size 48 --clip-frames 8   # plumbing only
+
+Counterpart of the JAX bench (``asltpu/benchmark.py``, ``bench.py``), which
+stays the JAX package's own. Cells, one per (family, lane):
+``mobilenet_gru`` at batch 32 on the rgb and the yuv420 lane and
+``resnet_transformer`` at batch 16 on the rgb lane, each at full width with
+random weights from ``--seed``. Per cell:
+
+- ``device_only``: back-to-back ``predict_fn`` calls on a batch already on
+  the device, with the CUDA preprocess kernel and with ``use_pallas=False``
+  (the plain PyTorch preprocess), the kernel's launches per predict, the
+  stage times (preprocess, backbone, head) and the peak device memory;
+- ``stream``: seeded distinct uint8 batches made in host memory before the
+  clock starts, through ``Prefetcher`` (pinned copy on a side stream) →
+  predict → logits back on the host, cut into contiguous windows; the
+  median window's clips/s, the fill time (to the first batch on the
+  device) apart;
+- ``decode``: decode-only clips/s of the process pool by worker count, each
+  count over a corpus of fresh synthetic mp4s (a file decoded before runs
+  faster again);
+- ``mp4_stream``: ``stream_predict`` over a fresh corpus, mp4 → logits;
+  its top-1 must equal ``predict``'s on the same staged clips;
+- ``gflops_per_clip`` (``FlopCounterMode`` over the model's forward in one
+  predict, divided by the batch; the preprocess kernel is not a PyTorch op
+  and adds none) and, on the card, ``mfu`` against the H100 SXM bf16 dense
+  peak.
+
+``decode`` and ``mp4_stream`` need OpenCV; without it each is
+``{"ran": false, "why": ...}`` and the rest runs. Device times come from
+CUDA events on the card; with ``--device cpu`` every time is the host
+clock's and says so. Without a card and without ``--device cpu`` the run
+fails; a failing cell raises. The last line of standard output is one JSON
+object with every cell.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import contextlib
+import dataclasses
+import functools
+import json
+import multiprocessing
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from asltpu_torch import api
+from asltpu_torch.data.decode import make_decode_pool
+from asltpu_torch.data.prefetch import Prefetcher
+from asltpu_torch.data.synthetic import write_video
+from asltpu_torch.models.resnet import ResNet18
+from asltpu_torch.models.temporal import GRUHead
+from asltpu_torch.models.video import MobileNetV2GRU
+from asltpu_torch.ops import preprocess_kernels
+from asltpu_torch.ops.preprocess import preprocess_clip
+
+# (family, lane, clips per batch): the JAX bench's batches per family
+# (asltpu/benchmark.py:1298-1304).
+CELLS: Tuple[Tuple[str, str, int], ...] = (
+    ("mobilenet_gru", "rgb", 32),
+    ("mobilenet_gru", "yuv420", 32),
+    ("resnet_transformer", "rgb", 16),
+)
+# The yuv420 lane is the JAX bench's transfer-thin configuration: the host
+# resizes to 256 and crops 224², and sends packed I420.
+LANES = {
+    "rgb": {},
+    "yuv420": {"staging_size": (224, 224), "resize_short": 224,
+               "host_resize_short": 256, "staging_format": "yuv420"},
+}
+KERNELS = {"rgb": "preprocess_rgb", "yuv420": "preprocess_yuv420"}
+# H100 SXM data sheet: bf16 dense tensor-core peak.
+PEAK_BF16_FLOP_PER_S = 989e12
+
+
+def card_identity() -> Dict[str, object]:
+    """The card as ``nvidia-smi`` and PyTorch name it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    name, limit = (s.strip() for s in smi.split(",", 1))
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi": smi,
+            "name": name, "power_limit": limit}
+
+
+@dataclasses.dataclass(frozen=True)
+class Clock:
+    """How a device time is taken: CUDA events around back-to-back calls on
+    the card, the host clock on the CPU; the median of ``samples`` runs of
+    ``reps`` calls after ``warmup`` calls, per call."""
+
+    device: torch.device
+    reps: int
+    samples: int
+    warmup: int
+
+    @classmethod
+    def for_device(cls, device: torch.device) -> "Clock":
+        if device.type == "cuda":
+            return cls(device, reps=5, samples=7, warmup=3)
+        return cls(device, reps=1, samples=3, warmup=1)
+
+    @property
+    def source(self) -> str:
+        return "cuda events" if self.device.type == "cuda" else "host clock (cpu)"
+
+    def sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def ms(self, fn: Callable[[], object], reps: Optional[int] = None) -> float:
+        reps = reps or self.reps
+        for _ in range(self.warmup):
+            fn()
+        self.sync()
+        times = []
+        for _ in range(self.samples):
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / reps)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                times.append((time.perf_counter() - t0) * 1e3 / reps)
+        return statistics.median(times)
+
+
+def _preprocess(lane: str, opts: argparse.Namespace) -> Dict[str, object]:
+    """The lane's preprocess overrides, with the shape options applied."""
+    pp: Dict[str, object] = dict(LANES[lane])
+    if opts.frames:
+        pp["num_frames"] = opts.frames
+    if opts.crop:
+        pp["crop"] = opts.crop
+        if lane == "yuv420":
+            pp.update(staging_size=(opts.crop, opts.crop), resize_short=opts.crop)
+    if opts.staging:
+        if lane == "yuv420":
+            pp["host_resize_short"] = opts.staging
+        else:
+            pp.update(staging_size=(opts.staging, opts.staging),
+                      resize_short=opts.staging)
+    return pp
+
+
+def backbone_and_head(module) -> Tuple[Callable, Callable, torch.dtype]:
+    """A built model's per-frame backbone (NCHW frames → [N, F]), its head
+    ([B, T, F] → logits) and the backbone's compute dtype."""
+    if isinstance(module, MobileNetV2GRU):
+        return (module.features, functools.partial(GRUHead.forward, module),
+                module.features[0][0].weight.dtype)
+    return (functools.partial(ResNet18.forward, module), module.head,
+            module.conv1.weight.dtype)
+
+
+def stage_fns(model: api.Model, x: torch.Tensor) -> Dict[str, Callable[[], object]]:
+    """One predict split into its three stages, each on the previous
+    stage's output: preprocess, backbone over the B·T frames, head."""
+    pp = model.cfg.preprocess
+    backbone, head, dtype = backbone_and_head(model.module)
+    with torch.inference_mode():
+        clip = preprocess_clip(x, pp)
+        nchw = clip.flatten(0, 1).permute(0, 3, 1, 2).to(dtype)
+        feats = backbone(nchw).reshape(*clip.shape[:2], -1)
+    return {"preprocess": lambda: preprocess_clip(x, pp),
+            "backbone": lambda: backbone(nchw), "head": lambda: head(feats)}
+
+
+def _gflops_per_clip(model: api.Model, x: torch.Tensor) -> float:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.inference_mode():
+        clip = preprocess_clip(x, model.cfg.preprocess)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            model.module(clip)
+    return counter.get_total_flops() / x.shape[0] / 1e9
+
+
+def _windows(t_start: float, t_first: float, events: Sequence[Tuple[float, int]],
+             n_windows: int, fill_clips: int = 0) -> Dict[str, object]:
+    """Rates of a stream that started at ``t_start``: ``events`` are (time
+    done, clips) per batch in order after the fill, which ended at
+    ``t_first`` with ``fill_clips`` clips done. The batches are cut into
+    ``n_windows`` contiguous windows, the first starting at ``t_first``;
+    the median window's rate is the stream's."""
+    nb = len(events)
+    nw = min(n_windows, nb)
+    bounds = [round(k * nb / nw) for k in range(nw + 1)]
+    rates = []
+    for k in range(nw):
+        evs = events[bounds[k]:bounds[k + 1]]
+        t0 = t_first if k == 0 else events[bounds[k] - 1][0]
+        rates.append(sum(n for _, n in evs) / (evs[-1][0] - t0))
+    clips = sum(n for _, n in events) + fill_clips
+    return {"clips_per_s": statistics.median(rates), "window_clips_per_s": rates,
+            "fill_s": t_first - t_start, "fill_clips": fill_clips,
+            "overall_clips_per_s": clips / (events[-1][0] - t_start),
+            "windowed_batches": nb, "clips": clips}
+
+
+def host_stream(model: api.Model, batches: Sequence[np.ndarray],
+                n_windows: int) -> Dict[str, object]:
+    """Host-staged stream: ``batches`` → ``Prefetcher`` → predict → logits
+    on the host. Every batch's top-1 must equal ``predict``'s on it."""
+    fn = model.predict_fn()
+    events: List[Tuple[float, int]] = []
+    logits: List[np.ndarray] = []
+    t_start = time.perf_counter()
+    t_first = None
+    with Prefetcher(((b,) for b in batches), depth=2, device=model.device) as pf:
+        for (frames,) in pf:
+            if t_first is None:
+                t_first = time.perf_counter()
+            logits.append(fn(frames).cpu().numpy())
+            events.append((time.perf_counter(), frames.shape[0]))
+    out = _windows(t_start, t_first, events, n_windows)
+    agree = sum(int((api.predict(model, b)[0] == lg.argmax(-1)).all())
+                for b, lg in zip(batches, logits))
+    if agree != len(batches):
+        raise AssertionError(f"host stream: {len(batches) - agree} batches' top-1 "
+                             "differ from predict on the same frames")
+    out["top1_equal_predict"] = True
+    return out
+
+
+def _cv2_missing() -> Optional[str]:
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        return f"OpenCV (cv2) is not installed here: {e}"
+    return None
+
+
+def make_corpus(writers: concurrent.futures.Executor, root: str, prefix: str,
+                n: int, seed0: int, size: int, frames: int) -> List[str]:
+    """``n`` distinct synthetic mp4s of ``size``² and ``frames`` frames,
+    seeds ``seed0`` on, written by the ``writers`` pool."""
+    paths = [os.path.join(root, f"{prefix}{i:04d}.mp4") for i in range(n)]
+    futures = [writers.submit(write_video, p, num_frames=frames, size=(size, size),
+                              seed=seed0 + i) for i, p in enumerate(paths)]
+    for f in futures:
+        f.result()
+    return paths
+
+
+def decode_rate(pp, paths: Sequence[str], batch: int, workers: int) -> float:
+    """Decode-only clips/s of the process pool over ``paths``, timed after
+    each worker has decoded one clip of its own (its start-up)."""
+    pool = make_decode_pool(pp, num_workers=workers, backend="process")
+    try:
+        warm, timed = paths[:workers], paths[workers:]
+        for f in [pool.submit(p) for p in warm]:
+            f.result()
+        t0 = time.perf_counter()
+        n = sum(len(kept) for _, kept in pool.map_batches(timed, batch))
+        return n / (time.perf_counter() - t0)
+    finally:
+        pool.shutdown()
+
+
+def mp4_stream(model: api.Model, paths: Sequence[str], batch: int, workers: int,
+               n_windows: int) -> Dict[str, object]:
+    """``stream_predict`` over ``paths``: the first batch (pool start-up,
+    decode of a batch, the first predict) is the fill, the later batches
+    the windows. The pool decodes up to four batches ahead, so the first
+    window can start with clips decoded during the fill; the median window
+    is the stream's rate. Its top-1 must equal ``predict``'s on the same
+    staged clips, batched the same way (decoded again by a pool of its
+    own, after the clock)."""
+    t_start = time.perf_counter()
+    stamps, logits = [], []
+    for _, _, lg in api.stream_predict(model, paths, batch_size=batch,
+                                       num_decode_workers=workers,
+                                       decode_backend="process"):
+        stamps.append(time.perf_counter())
+        logits.append(lg)
+    ends = [stamps[min(i + batch, len(stamps)) - 1] for i in range(0, len(stamps), batch)]
+    sizes = [min(batch, len(stamps) - i) for i in range(0, len(stamps), batch)]
+    if len(ends) < 2:
+        raise ValueError("mp4 stream: the corpus must hold at least two batches")
+    out = _windows(t_start, ends[0], list(zip(ends[1:], sizes[1:])), n_windows,
+                   fill_clips=sizes[0])
+    pool = make_decode_pool(model.cfg.preprocess, num_workers=workers, backend="process")
+    try:
+        want = np.concatenate([api.predict(model, frames)[1][:len(kept)]
+                               for frames, kept in pool.map_batches(paths, batch)])
+    finally:
+        pool.shutdown()
+    got = np.stack(logits)
+    if not (got.argmax(-1) == want.argmax(-1)).all():
+        raise AssertionError("mp4 stream: top-1 differs from predict on the same "
+                             "staged clips")
+    out.update(top1_equal_predict=True,
+               max_logit_err_vs_predict=float(np.abs(got - want).max()))
+    return out
+
+
+def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
+               device: torch.device, corpus: Optional[Callable[..., List[str]]],
+               seed0: int) -> Dict[str, object]:
+    """Every measurement of one (family, lane) cell. ``corpus(prefix, n,
+    seed0)`` writes fresh mp4s (None where OpenCV is missing); ``seed0``
+    seeds this cell's."""
+    clock = Clock.for_device(device)
+    pp = _preprocess(lane, opts)
+    model = api.load_model(family, seed=opts.seed, device=device, preprocess=pp)
+    cfg = model.cfg.preprocess
+    rng = np.random.default_rng(opts.seed + 1)
+    shape = (batch, cfg.num_frames, *cfg.staged_frame_shape)
+    host = [rng.integers(0, 256, shape, np.uint8) for _ in range(opts.stream_batches)]
+    x = torch.from_numpy(host[0]).to(device)
+    fn = model.predict_fn()
+
+    kernel = getattr(preprocess_kernels, KERNELS[lane])
+    clock.sync()
+    kernel.launches = 0
+    logits = fn(x)
+    clock.sync()
+    launches = kernel.launches
+    if logits.shape != (batch, model.cfg.num_classes) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{family}/{lane}: logits {tuple(logits.shape)} not finite "
+                             "or of the wrong shape")
+    plain = api.load_model(family, seed=opts.seed, device=device,
+                           preprocess=dict(pp, use_pallas=False))
+    plain_fn = plain.predict_fn()
+    plain_logits = plain_fn(x)
+    ms = clock.ms(lambda: fn(x))
+    plain_ms = clock.ms(lambda: plain_fn(x))
+    del plain, plain_fn
+    with torch.inference_mode():
+        stage_ms = {k: clock.ms(f) for k, f in stage_fns(model, x).items()}
+    peak_gb = None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        fn(x)
+        torch.cuda.synchronize(device)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    gflops = _gflops_per_clip(model, x)
+    device_only = {
+        "clips_per_s": batch / ms * 1e3, "ms_per_batch": ms,
+        "plain_clips_per_s": batch / plain_ms * 1e3, "plain_ms_per_batch": plain_ms,
+        "kernel": KERNELS[lane], "kernel_launches_per_predict": launches,
+        "max_logit_err_vs_plain": float((logits - plain_logits).abs().max()),
+        "stage_ms": stage_ms, "peak_mem_gb": peak_gb, "timer": clock.source,
+    }
+    cell: Dict[str, object] = {
+        "family": family, "lane": lane, "batch": batch,
+        "input": list(shape), "compute_dtype": model.cfg.compute_dtype,
+        "preprocess": dataclasses.asdict(cfg), "device": str(device),
+        "device_only": device_only, "gflops_per_clip": gflops,
+    }
+    if device.type == "cuda":
+        cell["mfu"] = gflops * 1e9 * device_only["clips_per_s"] / PEAK_BF16_FLOP_PER_S
+    cell["stream"] = host_stream(model, host, opts.windows)
+    del host, x
+
+    if corpus is None:
+        cell["decode"] = cell["mp4_stream"] = {"ran": False, "why": _cv2_missing()}
+        return cell
+    rates = {}
+    for i, w in enumerate(opts.decode_workers):
+        paths = corpus(f"{family}_{lane}_w{w}_", opts.corpus_clips + w, seed0 + 100 * i)
+        rates[str(w)] = decode_rate(cfg, paths, batch, w)
+    cell["decode"] = {"ran": True, "backend": "process", "clips_per_s_by_workers": rates,
+                      "clips": opts.corpus_clips,
+                      "clip": {"size": [opts.clip_size] * 2, "frames": opts.clip_frames}}
+    paths = corpus(f"{family}_{lane}_mp4_", opts.mp4_batches * batch, seed0 + 900)
+    workers = max(opts.decode_workers)
+    cell["mp4_stream"] = {"ran": True, "workers": workers,
+                          **mp4_stream(model, paths, batch, workers, opts.windows)}
+    return cell
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="torch device; the card by default (cpu: plumbing only)")
+    ap.add_argument("--cells", default=",".join(f"{f}:{ln}" for f, ln, _ in CELLS),
+                    help="comma-separated family:lane pairs")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="clips per batch (0: each family's own)")
+    ap.add_argument("--frames", type=int, default=0, help="override num_frames")
+    ap.add_argument("--crop", type=int, default=0, help="override the crop")
+    ap.add_argument("--staging", type=int, default=0,
+                    help="override the staged frame's side (yuv420: the host resize)")
+    ap.add_argument("--stream-batches", type=int, default=12)
+    ap.add_argument("--windows", type=int, default=3)
+    ap.add_argument("--decode-workers", default="1,2,4")
+    ap.add_argument("--corpus-clips", type=int, default=64,
+                    help="clips timed per decode worker count")
+    ap.add_argument("--mp4-batches", type=int, default=12,
+                    help="batches of fresh mp4s through stream_predict")
+    ap.add_argument("--clip-size", type=int, default=256)
+    ap.add_argument("--clip-frames", type=int, default=50)
+    opts = ap.parse_args(argv)
+    opts.decode_workers = [int(w) for w in opts.decode_workers.split(",")]
+    return opts
+
+
+def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    """Run the cells that ``argv`` selects; returns the result line."""
+    opts = parse_args(argv)
+    device = api.resolve_device(opts.device)
+    if device.type == "cuda":
+        card: Dict[str, object] = card_identity()
+    else:
+        card = {"platform": "cpu", "kind": "not a card: timings are the host's"}
+    batches = {(f, ln): b for f, ln, b in CELLS}
+    cells = []
+    with contextlib.ExitStack() as stack:
+        corpus = None
+        if _cv2_missing() is None:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory(prefix="asltpu_torch_bench_"))
+            writers = stack.enter_context(concurrent.futures.ProcessPoolExecutor(
+                min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")))
+            corpus = functools.partial(make_corpus, writers, tmp, size=opts.clip_size,
+                                       frames=opts.clip_frames)
+        for i, pair in enumerate(opts.cells.split(",")):
+            family, lane = pair.split(":")
+            batch = opts.batch or batches[(family, lane)]
+            t0 = time.perf_counter()
+            cell = bench_cell(family, lane, batch, opts, device, corpus,
+                              seed0=(opts.seed * 10 + i) * 10_000)
+            cell["seconds"] = time.perf_counter() - t0
+            print(json.dumps({"cell": f"{family}/{lane}", **cell}), file=sys.stderr,
+                  flush=True)
+            cells.append(cell)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return {"bench": "asltpu_torch", "card": card, "seed": opts.seed, "cells": cells}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    print(json.dumps(run(argv)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,8 @@
 """Carrying weights into the port: from the JAX package's variables, and
 from torchvision-layout ``.pt``/``.pth`` files. Counterpart of the torch
 import half of ``asltpu/ckpt.py`` (``import_mobilenetv2``,
-``import_torch_rnn``, ``load_torch_checkpoint``), run in the other
-direction.
+``import_resnet18``, ``import_torch_rnn``, ``import_transformer_head``,
+``load_torch_checkpoint``), run in the other direction.
 
 Layout rules (flax → torch):
 
@@ -14,8 +14,12 @@ Layout rules (flax → torch):
     ``weight_hh_l{k}`` transposed; ``l{k}_bi``/``l{k}_bh`` →
     ``bias_ih_l{k}``/``bias_hh_l{k}``
   - Dense kernel (I, O) → Linear weight (O, I)
+  - attention ``query``/``key``/``value`` kernels [d, heads, hd] → the
+    q;k;v row blocks of ``in_proj_weight`` [3d, d] (biases [heads, hd] →
+    ``in_proj_bias``); ``out`` [heads, hd, d] → ``out_proj.weight`` [d, d]
+  - LayerNorm scale/bias → weight/bias
 
-Orbax checkpoints are not read yet (ROADMAP queue 1, item 5).
+Orbax checkpoints are not read yet (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -26,7 +30,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from asltpu_torch.config import MobileNetV2GRUConfig, ModelConfig
+from asltpu_torch.config import (
+    MobileNetV2GRUConfig,
+    ModelConfig,
+    ResNet18TransformerConfig,
+)
 
 Variables = Mapping[str, Any]
 
@@ -86,6 +94,74 @@ def mobilenetv2_state_dict(params: Mapping, stats: Mapping,
     return sd
 
 
+def basic_block_state_dict(params: Mapping, stats: Mapping,
+                           prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``BasicBlock`` → torchvision's names of one block: ``conv1``/
+    ``bn1``, ``conv2``/``bn2`` and, where the block has one,
+    ``downsample.0``/``.1``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("conv1", "conv2"):
+        sd.update(convbn_state_dict(params[name], stats[name], f"{prefix}{name}",
+                                    f"{prefix}bn{name[-1]}"))
+    if "downsample" in params:
+        sd.update(convbn_state_dict(params["downsample"], stats["downsample"],
+                                    f"{prefix}downsample.0", f"{prefix}downsample.1"))
+    return sd
+
+
+def resnet18_state_dict(params: Mapping, stats: Mapping,
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``ResNet18`` params/batch_stats → torchvision ``resnet18`` names
+    (the inverse of ``asltpu.ckpt.import_resnet18``)."""
+    sd = convbn_state_dict(params["stem"], stats["stem"], f"{prefix}conv1",
+                           f"{prefix}bn1")
+    for stage in range(1, 5):
+        for blk in range(2):
+            f = f"layer{stage}_{blk}"
+            sd.update(basic_block_state_dict(params[f], stats[f],
+                                             f"{prefix}layer{stage}.{blk}."))
+    return sd
+
+
+def _linear(params: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _vec(np.asarray(params["kernel"]).T),
+            f"{name}.bias": _vec(params["bias"])}
+
+
+def _layer_norm(params: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _vec(params["scale"]), f"{name}.bias": _vec(params["bias"])}
+
+
+def transformer_head_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``TransformerHead`` params → the port's names (``cls``, ``pos``,
+    [``in_proj``,] ``layers.{i}.{ln1, attn, ln2, mlp1, mlp2}``,
+    ``final_ln``, ``fc``): the inverse of
+    ``asltpu.ckpt.import_transformer_head``."""
+    sd = {"cls": _vec(params["cls"]), "pos": _vec(params["pos"])}
+    if "in_proj" in params:
+        sd.update(_linear(params["in_proj"], "in_proj"))
+    n_layers = sum(1 for k in params if k.startswith("layer"))
+    for i in range(n_layers):
+        p, t = params[f"layer{i}"], f"layers.{i}"
+        attn = p["attn"]
+        d = np.asarray(attn["out"]["kernel"]).shape[-1]
+        sd[f"{t}.attn.in_proj_weight"] = _vec(np.concatenate(
+            [np.asarray(attn[n]["kernel"]).reshape(d, d).T
+             for n in ("query", "key", "value")]))
+        sd[f"{t}.attn.in_proj_bias"] = _vec(np.concatenate(
+            [np.asarray(attn[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
+        sd[f"{t}.attn.out_proj.weight"] = _vec(
+            np.asarray(attn["out"]["kernel"]).reshape(d, d).T)
+        sd[f"{t}.attn.out_proj.bias"] = _vec(attn["out"]["bias"])
+        for name in ("ln1", "ln2"):
+            sd.update(_layer_norm(p[name], f"{t}.{name}"))
+        for name in ("mlp1", "mlp2"):
+            sd.update(_linear(p[name], f"{t}.{name}"))
+    sd.update(_layer_norm(params["final_ln"], "final_ln"))
+    sd.update(_linear(params["fc"], "fc"))
+    return sd
+
+
 def gru_head_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
     """JAX ``GRUHead`` params → ``gru.*`` (``torch.nn.GRU`` names) + ``fc.*``."""
     sd: Dict[str, torch.Tensor] = {}
@@ -94,8 +170,7 @@ def gru_head_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Ten
         sd[f"gru.weight_hh_l{k}"] = _vec(np.asarray(params[f"l{k}_wh"]).T)
         sd[f"gru.bias_ih_l{k}"] = _vec(params[f"l{k}_bi"])
         sd[f"gru.bias_hh_l{k}"] = _vec(params[f"l{k}_bh"])
-    sd["fc.weight"] = _vec(np.asarray(params["fc"]["kernel"]).T)
-    sd["fc.bias"] = _vec(params["fc"]["bias"])
+    sd.update(_linear(params["fc"], "fc"))
     return sd
 
 
@@ -103,14 +178,19 @@ def state_dict_from_jax(cfg: ModelConfig, variables: Variables) -> Dict[str, tor
     """The port model's ``state_dict`` from the JAX model's variables, given
     as a numpy tree (``jax.device_get(model.variables)``: ``params`` plus
     ``batch_stats``)."""
-    if not isinstance(cfg, MobileNetV2GRUConfig):
+    if not isinstance(cfg, (MobileNetV2GRUConfig, ResNet18TransformerConfig)):
         raise NotImplementedError(
             f"weights of {type(cfg).__name__} are not ported yet "
-            "(ROADMAP queue 1, items 7-10)"
+            "(ROADMAP queue 1, items 7, 9, 10)"
         )
     params, stats = variables["params"], variables["batch_stats"]
-    sd = mobilenetv2_state_dict(params["backbone"], stats["backbone"])
-    sd.update(gru_head_state_dict(params["head"], cfg.gru_layers))
+    if isinstance(cfg, MobileNetV2GRUConfig):
+        sd = mobilenetv2_state_dict(params["backbone"], stats["backbone"])
+        sd.update(gru_head_state_dict(params["head"], cfg.gru_layers))
+        return sd
+    sd = resnet18_state_dict(params["backbone"], stats["backbone"])
+    sd.update({f"head.{k}": t for k, t in
+               transformer_head_state_dict(params["head"]).items()})
     return sd
 
 
@@ -123,15 +203,23 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return obj
 
 
+# Groups of a model's keys that a checkpoint may leave out as a whole: the
+# module keeps its own. As in the JAX importer: a backbone plus GRU file
+# without ``fc.*`` keeps the classifier, a ResNet-18 file without
+# ``head.*`` the transformer head.
+_OPTIONAL_GROUPS = ("fc.", "head.")
+
+
 def load_torch_checkpoint(module: nn.Module, path: str) -> None:
     """Load a torchvision-layout ``.pt``/``.pth`` into ``module`` in place.
-    As in the JAX importer, a file without ``fc.*`` (a backbone plus GRU
-    checkpoint) keeps the module's own classifier; any other missing or
-    unexpected key raises."""
-    result = module.load_state_dict(load_state_dict(path), strict=False)
+    A group of ``_OPTIONAL_GROUPS`` of which the file holds no key keeps
+    the module's own weights; any other missing or unexpected key raises."""
+    sd = load_state_dict(path)
+    absent = tuple(g for g in _OPTIONAL_GROUPS if not any(k.startswith(g) for k in sd))
+    result = module.load_state_dict(sd, strict=False)
     missing = [
         k for k in result.missing_keys
-        if not (k.startswith("fc.") or k.endswith("num_batches_tracked"))
+        if not (k.startswith(absent) or k.endswith("num_batches_tracked"))
     ]
     if missing or result.unexpected_keys:
         raise KeyError(

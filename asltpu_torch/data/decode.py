@@ -286,7 +286,9 @@ class DecodePool:
             yield pad_to_batch(np.stack(clips), batch_size), kept
 
     def shutdown(self):
-        self._pool.shutdown(wait=False, cancel_futures=True)
+        """Cancel the queued decodes and wait for the running ones, so no
+        worker outlives the pool."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 def make_decode_pool(

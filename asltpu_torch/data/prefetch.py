@@ -13,10 +13,20 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Iterable, Iterator, Optional
+from typing import Any, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """``None`` means the card; asking for a card where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 class Prefetcher:
@@ -28,15 +38,16 @@ class Prefetcher:
     Args:
       host_iter: yields host-side batches.
       depth: number of batches kept ahead (2 = double buffering).
-      device: where the arrays go (the CPU by default).
+      device: where the arrays go: the card by default
+        (:func:`resolve_device`), which raises where there is none.
     """
 
     _SENTINEL = object()
 
     def __init__(self, host_iter: Iterable[tuple], depth: int = 2,
-                 device: Optional[torch.device] = None):
+                 device: Union[None, str, torch.device] = None):
+        self._device = resolve_device(device)
         self._host_iter = iter(host_iter)
-        self._device = torch.device("cpu" if device is None else device)
         self._copy_stream = (
             torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
         )

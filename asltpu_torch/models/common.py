@@ -1,15 +1,22 @@
-"""Shared building blocks: ``ConvBN``, seeded initialisation, and merging
-time into the batch. Counterpart of ``asltpu/models/common.py``."""
+"""Shared building blocks: ``ConvBN``, seeded initialisation, the cast to
+the compute dtype, and merging time into the batch. Counterpart of
+``asltpu/models/common.py``."""
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Iterable, Tuple
 
 import torch
 from torch import nn
 
+from asltpu_torch.models.temporal import TransformerHead
 from asltpu_torch.ops.recurrent import GRU
+
+# Normalisation layers keep fp32 parameters and statistics under any compute
+# dtype, as flax's ``param_dtype=float32`` does: they take the low-precision
+# input, normalise in fp32 and round once.
+NORMS = (nn.BatchNorm2d, nn.LayerNorm)
 
 
 relu6 = nn.ReLU6
@@ -35,21 +42,45 @@ class ConvBN(nn.Sequential):
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random initialisation, in place: convs kaiming-normal over
-    fan-out and BN as identity (torchvision's MobileNetV2), linears as
-    ``nn.Linear``'s default, GRUs U(-1/√H, 1/√H)."""
+    fan-out and BN as identity (torchvision's MobileNetV2 and ResNet),
+    linears as ``nn.Linear``'s default, LayerNorm as identity, attention's
+    packed q/k/v projection as ``nn.MultiheadAttention``'s (Xavier-uniform,
+    zero bias), GRUs U(-1/√H, 1/√H), the transformer's CLS token and
+    positions truncated-normal (std 0.02)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Conv2d):
                 fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, NORMS):
                 m.reset_parameters()
             elif isinstance(m, nn.Linear):
                 bound = 1.0 / math.sqrt(m.in_features)
                 m.weight.uniform_(-bound, bound, generator=generator)
                 m.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(m, GRU):
+            elif isinstance(m, nn.MultiheadAttention):
+                nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
+                m.in_proj_bias.zero_()
+            elif isinstance(m, (GRU, TransformerHead)):
                 m.reset_parameters(generator)
+
+
+def cast_for_compute(module: nn.Module, dtype: torch.dtype,
+                     keep_fp32: Iterable[nn.Module] = ()) -> nn.Module:
+    """Cast ``module``'s parameters (convs, linears, attention, the CLS
+    token and positions) to ``dtype`` in place, except those of every
+    BatchNorm2d and LayerNorm and of the submodules in ``keep_fp32``: those
+    parameters and the norms' running statistics stay fp32. Names are
+    unchanged, and a later ``load_state_dict`` keeps each tensor's dtype."""
+    keep = set()
+    for m in keep_fp32:
+        keep.update(m.modules())
+    for m in module.modules():
+        if isinstance(m, NORMS) or m in keep:
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return module
 
 
 def merge_time_into_batch(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:

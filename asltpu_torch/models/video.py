@@ -1,6 +1,7 @@
-"""End-to-end video classifier: per-frame MobileNetV2 + GRU head. Counterpart
-of ``asltpu/models/video.py::MobileNetV2GRU``. The (B, T) axes fold into one
-batch for the backbone."""
+"""End-to-end video classifiers: a per-frame 2D backbone + a temporal head.
+Counterparts of ``asltpu/models/video.py::MobileNetV2GRU`` and
+``::ResNet18Transformer``. The (B, T) axes fold into one batch for the
+backbone."""
 
 from __future__ import annotations
 
@@ -8,7 +9,15 @@ import torch
 
 from asltpu_torch.models.common import merge_time_into_batch, split_time_from_batch
 from asltpu_torch.models.mobilenetv2 import MobileNetV2
-from asltpu_torch.models.temporal import GRUHead
+from asltpu_torch.models.resnet import ResNet18
+from asltpu_torch.models.temporal import GRUHead, TransformerHead
+
+
+def _per_frame(backbone, clip: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, T, H, W, 3] NHWC clip → [B, T, F] features of ``backbone``."""
+    frames, bt = merge_time_into_batch(clip)
+    # NHWC → NCHW view: channels_last strides, no copy.
+    return split_time_from_batch(backbone(frames.permute(0, 3, 1, 2).to(dtype)), bt)
 
 
 class MobileNetV2GRU(GRUHead):
@@ -17,7 +26,7 @@ class MobileNetV2GRU(GRUHead):
     It is a :class:`GRUHead` with the backbone as ``features`` in front, so
     its state dict has torchvision's ``features.*`` beside ``gru.*`` and
     ``fc.*`` — the names ``asltpu.ckpt.load_torch_checkpoint`` reads. The
-    backbone runs in the dtype of its parameters (bf16 by default, set by
+    backbone runs in the dtype of its conv weights (bf16 by default, set by
     ``asltpu_torch.api.load_model``) and the head in fp32.
     """
 
@@ -31,9 +40,28 @@ class MobileNetV2GRU(GRUHead):
 
     def forward(self, clip: torch.Tensor) -> torch.Tensor:
         """[B, T, H, W, 3] preprocessed NHWC clip → logits [B, num_classes]."""
-        frames, bt = merge_time_into_batch(clip)
-        dtype = self.features[0][0].weight.dtype
-        # NHWC → NCHW view: channels_last strides, no copy.
-        x = frames.permute(0, 3, 1, 2).to(dtype)
-        feats = split_time_from_batch(self.features(x), bt)  # [B, T, 1280]
-        return super().forward(feats)
+        feats = _per_frame(self.features, clip, self.features[0][0].weight.dtype)
+        return super().forward(feats)  # [B, T, 1280] → logits
+
+
+class ResNet18Transformer(ResNet18):
+    """Config #3: ResNet-18 per-frame features + 4-layer transformer head.
+
+    It is a :class:`ResNet18` with the head as ``head``, so its state dict
+    has torchvision's ResNet-18 names at the top level beside ``head.*`` —
+    the names ``asltpu.ckpt.load_torch_checkpoint`` reads. ``num_frames``
+    sizes the head's positions (the clip's T).
+    """
+
+    def __init__(self, num_classes: int = 300, num_frames: int = 32,
+                 d_model: int = 512, num_heads: int = 8, num_tx_layers: int = 4,
+                 mlp_ratio: int = 4, dropout: float = 0.1):
+        super().__init__()
+        self.head = TransformerHead(num_classes, self.out_features, num_frames,
+                                    d_model, num_heads, num_tx_layers, mlp_ratio,
+                                    dropout)
+
+    def forward(self, clip: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, 3] preprocessed NHWC clip → logits [B, num_classes]."""
+        feats = _per_frame(super().forward, clip, self.conv1.weight.dtype)
+        return self.head(feats)  # [B, T, 512] → logits

@@ -31,8 +31,16 @@ phase printing one JSON line:
    plain margin exceeds twice their difference. Then device-only times by
    CUDA events (bf16 model): a predict with each model, and its three
    stages (preprocess, backbone, GRU head) one by one.
+   Every loaded model's BatchNorm and LayerNorm parameters and buffers
+   must be fp32 (the compute dtype is bf16).
 4. yuv420 lane — the same with the transfer-thin I420 config (224² staging).
-5. kernels_mbconv — the fused MBConv kernels against their plain version at
+5. resnet lane — ``load_model("resnet_transformer")`` at full width
+   (ResNet-18, a 4-layer transformer head of width 512, 300 classes) on
+   the rgb lane, ``predict`` on 16 clips × 32 frames of 256² RGB, with the
+   same checks as the rgb lane: the rgb kernel launched, logits against
+   the ``use_pallas=False`` twin, the fp32 comparison on varied clips with
+   calibrated BN, device-only times and the stage times.
+6. kernels_mbconv — the fused MBConv kernels against their plain version at
    the seven block shapes of the full-width backbone on 512 frames of 224²:
    bf16 x runs the TF32 tensor-core kernel (``tf32_wmma``, within one bf16
    ulp of the largest output), fp32 x the CUDA-core kernel (``fp32_fma``,
@@ -41,7 +49,7 @@ phase printing one JSON line:
    peak), the first kernel's time on the same card model (``earlier_ms``)
    and (information only) the port's cuDNN ``InvertedResidual`` of the
    same shape.
-6. fused_backbone — the rgb lane's batch through preprocess (rgb kernel),
+7. fused_backbone — the rgb lane's batch through preprocess (rgb kernel),
    ``fused_backbone_apply`` (12 fused MBConv launches) and the GRU head,
    against ``predict`` on the same batch: features, logits and top-1. Then,
    with BN statistics calibrated on a seeded batch (at the seeded init the
@@ -49,12 +57,18 @@ phase printing one JSON line:
    module's own layer on the same input, and (information) both bf16
    backbones against the fp32 one. Then the fused and the cuDNN backbone
    timed by CUDA events, and their peak memory.
-7. host — ``load_clip`` → ``predict`` and ``stream_predict`` on synthetic
+8. host — ``load_clip`` → ``predict`` and ``stream_predict`` on synthetic
    videos, when OpenCV is installed.
+9. bench — ``asltpu_torch.benchmark`` in this process over its three
+   (family, lane) cells with a short stream; its result line.
 
+The kernels' launch counts are read per path: each lane (and the fused
+path) sets them to 0 just before its ``predict`` and reads them just after.
 Then the card's ``nvidia-smi`` line, the kernels' JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero; on
-a host without a CUDA device it exits nonzero before doing anything. It
+a host without a CUDA device it exits nonzero before doing anything. At the
+end, after a failure too, it stops every process it started (the resource
+tracker of the bench's process pools) and fails if any other is alive. It
 imports nothing of JAX or of the ``asltpu`` package.
 """
 
@@ -63,8 +77,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -127,37 +139,39 @@ PREPROCESS_EARLIER_MS = {"rgb": 0.162533, "yuv420": 0.118643}
 RGB_LANE = {}
 YUV_LANE = {"staging_size": (224, 224), "resize_short": 224,
             "host_resize_short": 256, "staging_format": "yuv420"}
+# Each family at full width (its config's defaults) and the JAX bench's
+# batch (asltpu/benchmark.py:1298-1304).
+FAMILIES = {
+    "mobilenet_gru": {"batch": BATCH, "config": {
+        "width_mult": 1.0, "gru_hidden": 512, "num_classes": 100}},
+    "resnet_transformer": {"batch": 16, "config": {
+        "d_model": 512, "num_heads": 8, "num_tx_layers": 4, "mlp_ratio": 4,
+        "num_classes": 300, "num_frames": 32}},
+}
+# The bench phase: a short stream and small corpora, so the whole script
+# stays within a few minutes.
+BENCH_ARGS = ["--stream-batches", "4", "--windows", "2", "--corpus-clips", "8",
+              "--mp4-batches", "2"]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps: int, samples: int = SAMPLES, warmup: int = WARMUP) -> float:
-    """Device time of one call: the median over ``samples`` runs of CUDA
-    events around ``reps`` back-to-back calls, divided by ``reps``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+def time_ms(fn, reps: int) -> float:
+    """Device time of one call: the median over ``SAMPLES`` runs of CUDA
+    events around ``reps`` back-to-back calls, divided by ``reps``, after
+    ``WARMUP`` calls (``asltpu_torch.benchmark.Clock``)."""
+    from asltpu_torch.benchmark import Clock
+
+    return Clock(torch.device("cuda"), reps, SAMPLES, WARMUP).ms(fn)
 
 
 def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    from asltpu_torch.benchmark import card_identity
+
+    return card_identity()["nvidia_smi"]
 
 
 def phase_device():
@@ -399,21 +413,36 @@ def phase_mbconv():
     return summary
 
 
-def calibrate_bn(backbone, nchw) -> None:
-    """Set every BN's running statistics to those of one seeded batch (a
-    train-mode pass with momentum 1). At the seeded init (BN at identity)
-    activations shrink through each depthwise conv, and the full-width
-    features come out near 1e-8 and alike for every clip; calibrated, every
-    layer's output is of order 1."""
-    bns = [m for m in backbone.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+def calibrate_bn(module, nchw, forward=None) -> None:
+    """Set every BN's running statistics in ``module`` to those of one
+    seeded batch (a train-mode pass with momentum 1 through ``forward``,
+    ``module`` itself by default). At the seeded init (BN at identity)
+    activations shrink through each depthwise conv of MobileNetV2, and the
+    full-width features come out near 1e-8 and alike for every clip;
+    calibrated, every layer's output is of order 1."""
+    bns = [m for m in module.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for m in bns:
         m.momentum = 1.0
-    backbone.train()
+    module.train()
     with torch.no_grad():
-        backbone(nchw)
-    backbone.eval()
+        (forward or module)(nchw)
+    module.eval()
     for m in bns:
         m.momentum = 0.1
+
+
+def assert_norms_fp32(module) -> int:
+    """Every BatchNorm2d and LayerNorm parameter and buffer of ``module``
+    must be fp32 (as the reference keeps them under a bf16 compute dtype);
+    returns how many norm layers were checked."""
+    norms = [m for m in module.modules()
+             if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.LayerNorm))]
+    bad = [(name, t.dtype) for m in norms
+           for name, t in list(m.named_parameters()) + list(m.named_buffers())
+           if t.is_floating_point() and t.dtype != torch.float32]
+    if bad or not norms:
+        raise AssertionError(f"norm layers not fp32: {bad[:5]} ({len(norms)} norms)")
+    return len(norms)
 
 
 def _rel_err(got, want) -> float:
@@ -566,7 +595,7 @@ def phase_fused_backbone():
 
 
 def _varied_clips(seed, batch, t, staged_shape):
-    """uint8 clips of smooth moving patterns, as ``_write_video`` draws them,
+    """uint8 clips of smooth moving patterns, as ``write_video`` draws them,
     with a phase, frequency, direction, brightness and contrast of their
     own, staged as RGB ``[B, T, H, W, 3]`` or packed I420 ``[B, T, H·3/2,
     W]`` (the Y plane, then the U and V planes at half resolution). i.i.d.
@@ -597,27 +626,29 @@ def _varied_clips(seed, batch, t, staged_shape):
     return out
 
 
-def _lane_varied(pp_overrides, staged_shape):
+def _lane_varied(family, pp_overrides, staged_shape):
     """Kernel vs plain preprocess on logits that vary: an fp32 model (fp32
     preprocess out, TF32 off) with BN calibrated on a seeded batch, its
     state copied into the ``use_pallas=False`` twin, both fed clips that
     differ from clip to clip. Returns the comparison's numbers; raises when
     the logits barely vary or the two disagree."""
     from asltpu_torch import api
+    from asltpu_torch.benchmark import backbone_and_head
     from asltpu_torch.ops.preprocess import preprocess_clip
 
+    batch = FAMILIES[family]["batch"]
     pp = dict(pp_overrides, out_dtype="float32")
-    model = api.load_model("mobilenet_gru", seed=SEED, compute_dtype="float32",
-                           preprocess=pp)
+    model = api.load_model(family, seed=SEED, compute_dtype="float32", preprocess=pp)
     t = model.cfg.preprocess.num_frames
     calib = torch.from_numpy(_varied_clips(SEED + 3, 8, t, staged_shape)).to(model.device)
     with torch.inference_mode():
         calib = preprocess_clip(calib, model.cfg.preprocess).flatten(0, 1)
-    calibrate_bn(model.module.features, calib.permute(0, 3, 1, 2))
-    plain = api.load_model("mobilenet_gru", seed=SEED, compute_dtype="float32",
+    backbone, _, _ = backbone_and_head(model.module)
+    calibrate_bn(model.module, calib.permute(0, 3, 1, 2), backbone)
+    plain = api.load_model(family, seed=SEED, compute_dtype="float32",
                            preprocess=dict(pp, use_pallas=False))
     plain.module.load_state_dict(model.module.state_dict())
-    frames = _varied_clips(SEED + 4, BATCH, t, staged_shape)
+    frames = _varied_clips(SEED + 4, batch, t, staged_shape)
     ids, logits = api.predict(model, frames)
     plain_ids, plain_logits = api.predict(plain, frames)
     del model, plain, calib
@@ -642,23 +673,26 @@ def _lane_varied(pp_overrides, staged_shape):
     return result
 
 
-def _lane(name, pp_overrides, staged_shape):
-    """Drive one lane through the public API; returns the launch counts of
-    the main-path predict."""
+def _lane(name, family, pp_overrides, staged_shape):
+    """Drive one lane of one family through the public API; returns the
+    launch counts of the main-path predict."""
     from asltpu_torch import api
-    from asltpu_torch.models.temporal import GRUHead
+    from asltpu_torch.benchmark import stage_fns
     from asltpu_torch.ops import preprocess_kernels as k
-    from asltpu_torch.ops.preprocess import preprocess_clip
 
-    model = api.load_model("mobilenet_gru", seed=SEED, preprocess=dict(pp_overrides))
+    batch = FAMILIES[family]["batch"]
+    model = api.load_model(family, seed=SEED, preprocess=dict(pp_overrides))
     cfg = model.cfg
-    assert cfg.width_mult == 1.0 and cfg.gru_hidden == 512
-    assert cfg.num_classes == 100 and cfg.preprocess.crop == 224
+    for key, want in FAMILIES[family]["config"].items():
+        assert getattr(cfg, key) == want, (family, key, getattr(cfg, key))
+    assert cfg.preprocess.crop == 224 and cfg.compute_dtype == "bfloat16"
+    norms = assert_norms_fp32(model.module)
     frames = np.random.default_rng(SEED + 1).integers(
-        0, 256, (BATCH, cfg.preprocess.num_frames, *staged_shape), np.uint8)
+        0, 256, (batch, cfg.preprocess.num_frames, *staged_shape), np.uint8)
     assert frames.shape[2:] == cfg.preprocess.staged_frame_shape
     torch.cuda.reset_peak_memory_stats()
 
+    torch.cuda.synchronize()
     k.preprocess_rgb.launches = 0
     k.preprocess_yuv420.launches = 0
     ids, logits = api.predict(model, frames)
@@ -667,67 +701,43 @@ def _lane(name, pp_overrides, staged_shape):
                 "preprocess_yuv420": k.preprocess_yuv420.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    assert logits.shape == (BATCH, 100) and np.isfinite(logits).all()
+    assert logits.shape == (batch, cfg.num_classes) and np.isfinite(logits).all()
     plain_model = api.load_model(
-        "mobilenet_gru", seed=SEED, preprocess=dict(pp_overrides, use_pallas=False))
+        family, seed=SEED, preprocess=dict(pp_overrides, use_pallas=False))
+    assert_norms_fp32(plain_model.module)
     plain_ids, plain_logits = api.predict(plain_model, frames)
     err = float(np.abs(logits - plain_logits).max())
     top2 = np.sort(plain_logits, axis=-1)
     if not (ids == plain_ids).all() or err > LANE_LOGIT_ATOL:
         raise AssertionError(f"{name} lane: kernel and plain preprocess disagree "
                              f"(max logit err {err}, top-1 {ids} vs {plain_ids})")
-    varied = _lane_varied(pp_overrides, staged_shape)
+    varied = _lane_varied(family, pp_overrides, staged_shape)
 
     x = torch.from_numpy(frames).to(model.device)
     fn, plain_fn = model.predict_fn(), plain_model.predict_fn()
     ms = time_ms(lambda: fn(x), PREDICT_REPS)
     plain_ms = time_ms(lambda: plain_fn(x), PREDICT_REPS)
-    # The same predict, stage by stage: preprocess, backbone, GRU head.
-    module = model.module
+    # The same predict, stage by stage: preprocess, backbone, head.
     with torch.inference_mode():
-        clip = preprocess_clip(x, cfg.preprocess)
-        nchw = clip.flatten(0, 1).permute(0, 3, 1, 2)
-        feats = module.features(nchw).reshape(BATCH, cfg.preprocess.num_frames, -1)
-        split = {
-            "preprocess": time_ms(
-                lambda: preprocess_clip(x, cfg.preprocess), KERNEL_REPS),
-            "backbone": time_ms(lambda: module.features(nchw), PREDICT_REPS),
-            "head": time_ms(lambda: GRUHead.forward(module, feats), PREDICT_REPS),
-        }
+        split = {stage: time_ms(f, KERNEL_REPS if stage == "preprocess" else PREDICT_REPS)
+                 for stage, f in stage_fns(model, x).items()}
     emit({
-        "phase": f"{name}_lane", "config": {"preprocess": pp_overrides,
-                                           "compute_dtype": cfg.compute_dtype},
+        "phase": f"{name}_lane", "family": family,
+        "config": {"preprocess": pp_overrides, "compute_dtype": cfg.compute_dtype},
         "input": list(frames.shape), "launches": launches,
+        "norm_layers_fp32": norms,
         "logits_finite": True, "top1_equal_plain": True,
         "max_logit_err_vs_plain": err, "atol": LANE_LOGIT_ATOL,
         "min_top1_margin": float((top2[:, -1] - top2[:, -2]).min()),
         "distinct_top1": len(set(plain_ids.tolist())), "varied_clips": varied,
-        "device_ms_per_batch": ms, "device_clips_per_s": BATCH / ms * 1e3,
+        "device_ms_per_batch": ms, "device_clips_per_s": batch / ms * 1e3,
         "plain_device_ms_per_batch": plain_ms,
-        "plain_device_clips_per_s": BATCH / plain_ms * 1e3,
+        "plain_device_clips_per_s": batch / plain_ms * 1e3,
         "stage_ms": split, "peak_mem_gb": peak_gb,
     })
+    del model, plain_model, x
+    torch.cuda.empty_cache()
     return launches
-
-
-def _write_video(path, num_frames, size, seed):
-    """A smooth moving-gradient mp4 (codec-friendly content)."""
-    import cv2
-
-    h, w = size
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    phase, freq = rng.uniform(0, 2 * np.pi, 3), rng.uniform(0.02, 0.08, 3)
-    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (w, h))
-    if not writer.isOpened():
-        raise IOError(f"cannot open video writer for {path}")
-    try:
-        for t in range(num_frames):
-            img = 127.5 + 110 * np.sin(
-                freq * (xx + yy)[..., None] + phase + 0.3 * t)
-            writer.write(np.clip(img, 0, 255).astype(np.uint8))
-    finally:
-        writer.release()
 
 
 def phase_host():
@@ -738,13 +748,14 @@ def phase_host():
               "why": f"OpenCV is not installed on this machine ({e})"})
         return
     from asltpu_torch import api
+    from asltpu_torch.data.synthetic import write_video
 
     model = api.load_model("mobilenet_gru", seed=SEED)
     with tempfile.TemporaryDirectory() as d:
         paths = []
         for i, size in enumerate([(240, 320), (320, 240), (256, 256), (480, 640)]):
             paths.append(os.path.join(d, f"clip{i}.mp4"))
-            _write_video(paths[-1], 40, size, seed=i)
+            write_video(paths[-1], num_frames=40, size=size, seed=i)
         singles = []
         for p in paths:
             clip = api.load_clip(p, model.cfg.preprocess)
@@ -762,35 +773,112 @@ def phase_host():
           "max_logit_err_stream_vs_predict": err})
 
 
+def phase_bench():
+    """The port's bench in this process, over its three cells, with a short
+    stream; every cell's rgb or yuv420 kernel must have launched."""
+    from asltpu_torch import benchmark
+
+    result = benchmark.run(BENCH_ARGS)
+    for cell in result["cells"]:
+        if cell["device_only"]["kernel_launches_per_predict"] < 1:
+            raise AssertionError(f"bench {cell['family']}/{cell['lane']}: "
+                                 "the preprocess kernel did not launch")
+    emit({"phase": "bench", "args": BENCH_ARGS, **result})
+    return result
+
+
+def _live_children() -> list:
+    """(pid, command line) of this process's children that have not exited,
+    from ``/proc``; exited ones (zombies) are reaped on the way."""
+    me, out = os.getpid(), []
+    for entry in os.scandir("/proc"):
+        if not entry.name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry.name}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            if int(ppid) != me:
+                continue
+            if state == "Z":
+                os.waitpid(int(entry.name), os.WNOHANG)
+                continue
+            with open(f"/proc/{entry.name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, ValueError):
+            continue  # exited while we looked
+        out.append((int(entry.name), cmd))
+    return out
+
+
+def stop_child_processes() -> None:
+    """Leave no process running: the bench's spawn pools start
+    multiprocessing's resource tracker, which lives until this interpreter
+    exits and a moment after it; stop it and reap it here. Any other child
+    still alive (a pool that was not shut down) is a fault: it is killed and
+    the run fails."""
+    import gc
+    import signal
+    from multiprocessing import resource_tracker
+
+    # Finalise the pools' semaphores first: each unregisters with the
+    # tracker, and would start a new one if it were already stopped.
+    gc.collect()
+    resource_tracker._resource_tracker._stop()
+    left = _live_children()
+    for pid, _ in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    if left:
+        raise AssertionError(f"processes left running, now killed: {left}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    try:
+        return _run()
+    finally:
+        stop_child_processes()
+
+
+def _run() -> int:
     from asltpu_torch.config import PreprocessConfig
 
     t0 = time.perf_counter()
     smi = phase_device()
     max_err, timing = phase_kernels()
-    rgb = _lane("rgb", RGB_LANE, PreprocessConfig().staged_frame_shape)
-    yuv = _lane("yuv420", YUV_LANE, PreprocessConfig(**YUV_LANE).staged_frame_shape)
-    if rgb["preprocess_rgb"] < 1 or yuv["preprocess_yuv420"] < 1:
-        raise AssertionError(f"a kernel did not run on its lane: {rgb}, {yuv}")
+    rgb = _lane("rgb", "mobilenet_gru", RGB_LANE, PreprocessConfig().staged_frame_shape)
+    yuv = _lane("yuv420", "mobilenet_gru", YUV_LANE,
+                PreprocessConfig(**YUV_LANE).staged_frame_shape)
+    resnet = _lane("resnet", "resnet_transformer", RGB_LANE,
+                   PreprocessConfig().staged_frame_shape)
+    if min(rgb["preprocess_rgb"], yuv["preprocess_yuv420"], resnet["preprocess_rgb"]) < 1:
+        raise AssertionError(f"a kernel did not run on its lane: {rgb}, {yuv}, {resnet}")
     mbconv = phase_mbconv()
     fused = phase_fused_backbone()
     phase_host()
+    phase_bench()
 
     kernels = []
-    for lane, fn, launches, replaces in (
-        ("rgb", "preprocess_rgb", rgb["preprocess_rgb"],
+    for lane, fn, by_path, replaces in (
+        ("rgb", "preprocess_rgb",
+         {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
+          "resnet_transformer/rgb": resnet["preprocess_rgb"]},
          "asltpu/ops/preprocess_pallas.py:67"),
-        ("yuv420", "preprocess_yuv420", yuv["preprocess_yuv420"],
+        ("yuv420", "preprocess_yuv420",
+         {"mobilenet_gru/yuv420": yuv["preprocess_yuv420"]},
          "asltpu/ops/preprocess_pallas.py:216"),
     ):
         t = timing[lane]
         kernels.append({
             "name": fn, "route": "cuda", "source": "asltpu_torch/csrc/preprocess.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_err[lane], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

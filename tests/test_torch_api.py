@@ -145,7 +145,7 @@ def test_stream_predict_default_pool_is_processes(videos):
 
 def test_prefetcher_on_cpu():
     batches = [(np.full((2, 3), i, np.uint8), [i]) for i in range(5)]
-    with Prefetcher(iter(batches), depth=2) as pf:
+    with Prefetcher(iter(batches), depth=2, device="cpu") as pf:
         got = list(pf)
     assert [k for _, k in got] == [[i] for i in range(5)]
     assert all(isinstance(x, torch.Tensor) and int(x[0, 0]) == k[0] for x, k in got)
@@ -155,5 +155,5 @@ def test_prefetcher_on_cpu():
         raise ValueError("decode failed")
 
     with pytest.raises(ValueError, match="decode failed"):
-        with Prefetcher(failing()) as pf:
+        with Prefetcher(failing(), device="cpu") as pf:
             list(pf)

@@ -1,0 +1,79 @@
+"""The port's bench at tiny shapes on the CPU: every cell's keys, the mp4
+parts where OpenCV is present (it is here), what it reports without
+OpenCV, and that it refuses to run without a card unless asked."""
+
+import json
+
+import pytest
+import torch
+
+from asltpu_torch import benchmark
+
+TINY = ["--device", "cpu", "--batch", "2", "--frames", "2", "--staging", "40",
+        "--crop", "32", "--clip-size", "48", "--clip-frames", "8",
+        "--stream-batches", "4", "--windows", "2", "--decode-workers", "1",
+        "--corpus-clips", "3", "--mp4-batches", "2"]
+BOTH = ["--cells", "mobilenet_gru:yuv420,resnet_transformer:rgb"]
+CELL_KEYS = {"family", "lane", "batch", "input", "compute_dtype", "preprocess",
+             "device", "device_only", "gflops_per_clip", "stream", "decode",
+             "mp4_stream", "seconds"}
+DEVICE_ONLY_KEYS = {"clips_per_s", "ms_per_batch", "plain_clips_per_s",
+                    "plain_ms_per_batch", "kernel", "kernel_launches_per_predict",
+                    "max_logit_err_vs_plain", "stage_ms", "peak_mem_gb", "timer"}
+STREAM_KEYS = {"clips_per_s", "window_clips_per_s", "fill_s", "fill_clips",
+               "overall_clips_per_s", "windowed_batches", "clips"}
+
+
+def test_bench_on_cpu_both_families(capsys):
+    assert benchmark.main(TINY + BOTH) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["card"]["platform"] == "cpu"
+    cells = {(c["family"], c["lane"]): c for c in line["cells"]}
+    assert set(cells) == {("mobilenet_gru", "yuv420"), ("resnet_transformer", "rgb")}
+    for (family, lane), cell in cells.items():
+        assert set(cell) == CELL_KEYS, family  # no mfu off the card
+        only = cell["device_only"]
+        assert set(only) == DEVICE_ONLY_KEYS
+        assert only["kernel"] == benchmark.KERNELS[lane]
+        assert only["kernel_launches_per_predict"] == 0  # CPU tensors take the plain path
+        assert only["timer"] == "host clock (cpu)" and only["peak_mem_gb"] is None
+        assert set(only["stage_ms"]) == {"preprocess", "backbone", "head"}
+        assert only["clips_per_s"] > 0 and only["max_logit_err_vs_plain"] < 1e-2
+        assert cell["gflops_per_clip"] > 0
+        assert STREAM_KEYS <= set(cell["stream"]) and cell["stream"]["clips"] == 8
+        assert cell["stream"]["top1_equal_predict"] is True
+        assert cell["decode"]["ran"] is True
+        assert set(cell["decode"]["clips_per_s_by_workers"]) == {"1"}
+        mp4 = cell["mp4_stream"]
+        assert mp4["ran"] is True and mp4["top1_equal_predict"] is True
+        assert mp4["clips"] == 4 and mp4["fill_clips"] == 2
+    # ResNet-18 does more work per clip than MobileNetV2 at the same shapes.
+    assert (cells[("resnet_transformer", "rgb")]["gflops_per_clip"]
+            > cells[("mobilenet_gru", "yuv420")]["gflops_per_clip"])
+
+
+def test_bench_without_opencv_reports_the_mp4_parts_not_run(monkeypatch):
+    monkeypatch.setattr(benchmark, "_cv2_missing", lambda: "no cv2 in this test")
+    line = benchmark.run(TINY + ["--cells", "mobilenet_gru:rgb", "--stream-batches", "2"])
+    (cell,) = line["cells"]
+    assert cell["decode"] == cell["mp4_stream"] == {"ran": False,
+                                                    "why": "no cv2 in this test"}
+    assert cell["stream"]["clips"] == 4
+
+
+def test_bench_needs_a_card_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark.main(["--cells", "mobilenet_gru:rgb"])
+
+
+def test_stream_windows():
+    """Windows split the batches after the fill; the median window rate is
+    the stream's."""
+    events = [(2.0, 4), (3.0, 4), (5.0, 4), (6.0, 4)]
+    out = benchmark._windows(0.0, 1.0, events, 2, fill_clips=4)
+    assert out["window_clips_per_s"] == [4.0, 8 / 3]
+    assert out["clips_per_s"] == pytest.approx((4.0 + 8 / 3) / 2)
+    assert out["fill_s"] == 1.0 and out["clips"] == 20
+    assert out["overall_clips_per_s"] == pytest.approx(20 / 6)

@@ -112,7 +112,7 @@ def test_unported_names_and_backends_say_so():
     from asltpu_torch.config import PreprocessConfig
     from asltpu_torch.data.decode import make_decode_pool
 
-    for name in ("pose_bilstm", "resnet_transformer", "i3d", "two_stream"):
+    for name in ("pose_bilstm", "i3d", "two_stream"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.build_module(api.get_config(name))
     for backend in ("native", "av"):

@@ -21,6 +21,7 @@ from asltpu.models import temporal as jtemporal
 from asltpu.ops import mbconv_pallas as jmb
 from asltpu_torch import ckpt as tckpt
 from asltpu_torch.models import mobilenet_fused as tfused
+from asltpu_torch.models.common import cast_for_compute
 from asltpu_torch.models import mobilenetv2 as tmnv2
 from asltpu_torch.models import temporal as ttemporal
 from asltpu_torch.ops import mbconv_kernels as k
@@ -293,13 +294,13 @@ def test_fused_backbone_matches_jax(width1_backbones):
 
 
 def test_fused_backbone_matches_port_backbone(width1_backbones):
-    """The fused backbone against the port's own bf16 backbone (BN unfolded,
-    as ``predict`` runs it): the comparison ``chip_smoke.py`` makes on the
-    card."""
+    """The fused backbone against the port's own bf16 backbone (BN unfolded
+    and fp32, as ``predict`` runs it): the comparison ``chip_smoke.py``
+    makes on the card."""
     tm, frames, _, got, _ = width1_backbones
     plain = tmnv2.MobileNetV2(1.0).eval()
     plain.load_state_dict(tm.state_dict())
-    plain.to(torch.bfloat16)
+    cast_for_compute(plain, torch.bfloat16)
     with torch.no_grad():
         want = plain(torch.from_numpy(frames).permute(0, 3, 1, 2).bfloat16())
     want = want.float().numpy()
@@ -313,7 +314,7 @@ def test_fused_layers_match_port_layers(width1_backbones):
     tm, frames, _, _, _ = width1_backbones
     plain = tmnv2.MobileNetV2(1.0).eval()
     plain.load_state_dict(tm.state_dict())
-    plain.to(torch.bfloat16)
+    cast_for_compute(plain, torch.bfloat16)
     layers = tfused.fused_layers(tm)
     fused = [getattr(f, "func", None) is tfused._fused_block for f in layers]
     assert len(layers) == len(plain) == 19 and sum(fused) == 12
