@@ -8,17 +8,20 @@ path:
     ``stream_predict``.
   - :mod:`asltpu_torch.config`  — the five configs, field for field.
   - :mod:`asltpu_torch.models`  — MobileNetV2 + GRU head (``mobilenet_gru``),
-    ResNet-18 + transformer head (``resnet_transformer``).
+    ResNet-18 + transformer head (``resnet_transformer``), the landmark
+    BiLSTM (``pose_bilstm``).
   - :mod:`asltpu_torch.ops`     — preprocess (plain PyTorch and the
-    hand-written CUDA kernels of ``csrc/``), the GRU layer.
-  - :mod:`asltpu_torch.data`    — host decode, padding, prefetch to the card,
-    synthetic videos.
+    hand-written CUDA kernels of ``csrc/``), the GRU and LSTM layers.
+  - :mod:`asltpu_torch.data`    — host decode, WLASL clip records,
+    landmarks, padding, prefetch to the card, synthetic fixtures.
+  - :mod:`asltpu_torch.native`  — the native (C++, g++) batch decoders,
+    OpenCV and libav, bound with ctypes.
   - :mod:`asltpu_torch.ckpt`    — weights from the JAX package or ``.pt``.
   - :mod:`asltpu_torch.benchmark` — the port's bench
     (``python -m asltpu_torch.benchmark``).
 
-Importing the package loads no CUDA code and needs no nvcc: the kernels are
-built on first use.
+Importing the package loads no CUDA code and needs no nvcc or g++: the
+kernels and the native decoders are built on first use.
 """
 
 __version__ = "0.1.0"

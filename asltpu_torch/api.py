@@ -1,10 +1,12 @@
 """Public API: ``load_model``, ``load_clip``, ``predict`` and
 ``stream_predict``. Counterpart of ``asltpu/api.py`` for the configs ported
-so far: ``mobilenet_gru`` and ``resnet_transformer``.
+so far: ``pose_bilstm``, ``mobilenet_gru`` and ``resnet_transformer``.
 
-Everything after host decode runs on the device: preprocess (a hand-written
-CUDA kernel on the card), the per-frame backbone over the B·T frames
-(MobileNetV2 or ResNet-18), the temporal head (GRU or transformer).
+For the RGB models everything after host decode runs on the device:
+preprocess (a hand-written CUDA kernel on the card), the per-frame backbone
+over the B·T frames (MobileNetV2 or ResNet-18), the temporal head (GRU or
+transformer). ``pose_bilstm`` takes landmarks [T, 543, 3] instead of
+frames; it normalises them and runs its BiLSTM on the device.
 The entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly running on the CPU.
 
@@ -16,24 +18,32 @@ eager PyTorch has no use for them, so they are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator, Optional, Sequence, Tuple, Union
+import logging
+from typing import Any, Callable, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from asltpu_torch import native
 from asltpu_torch.config import (
     MobileNetV2GRUConfig,
     ModelConfig,
+    PoseBiLSTMConfig,
     PreprocessConfig,
     ResNet18TransformerConfig,
+    TwoStreamFusionConfig,
     get_config,
 )
 from asltpu_torch.data.decode import decode_clip, make_decode_pool
+from asltpu_torch.data.pad import pad_to_batch
 from asltpu_torch.data.prefetch import Prefetcher, resolve_device
+from asltpu_torch.models.bilstm import PoseBiLSTM
 from asltpu_torch.models.common import cast_for_compute, init_weights
 from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
 from asltpu_torch.ops.preprocess import preprocess_clip
+
+_log = logging.getLogger("asltpu_torch.stream")
 
 
 def gloss_label(idx, gloss_names=None):
@@ -65,8 +75,17 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             mlp_ratio=cfg.mlp_ratio,
             dropout=cfg.dropout,
         )
+    if isinstance(cfg, PoseBiLSTMConfig):
+        return PoseBiLSTM(
+            num_classes=cfg.num_classes,
+            hidden=cfg.hidden_size,
+            num_layers=cfg.num_layers,
+            dropout=cfg.dropout,
+            num_landmarks=cfg.num_landmarks,
+            landmark_dim=cfg.landmark_dim,
+        )
     raise NotImplementedError(
-        f"{cfg.name} is not ported yet (ROADMAP queue 1, items 7, 9, 10)"
+        f"{cfg.name} is not ported yet (ROADMAP queue 1, items 9, 10)"
     )
 
 
@@ -74,7 +93,10 @@ def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
     """The parts of a built model that run fp32 under any compute dtype,
     besides its norms: the GRU head of ``mobilenet_gru`` (the recurrence
     amplifies low-precision error) and the transformer head's classifier,
-    which reads the CLS output in fp32."""
+    which reads the CLS output in fp32; all of ``pose_bilstm``, as the JAX
+    package computes it."""
+    if isinstance(module, PoseBiLSTM):
+        return (module,)
     if isinstance(module, MobileNetV2GRU):
         return (module.gru, module.fc)
     return (module.head.fc,)
@@ -88,11 +110,27 @@ class Model:
     module: nn.Module
     device: torch.device
 
-    def predict_fn(self):
-        """Staged uint8 frames on ``device`` ([B, T, Hs, Ws, 3] or packed
-        I420 [B, T, Hs·3/2, Ws]) → logits [B, num_classes] fp32."""
-        pp: PreprocessConfig = self.cfg.preprocess  # type: ignore[attr-defined]
+    @property
+    def takes_rgb(self) -> bool:
+        return not isinstance(self.cfg, PoseBiLSTMConfig)
+
+    @property
+    def takes_landmarks(self) -> bool:
+        return isinstance(self.cfg, (PoseBiLSTMConfig, TwoStreamFusionConfig))
+
+    def predict_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Input on ``device`` → logits [B, num_classes] fp32. The input is
+        staged uint8 frames ([B, T, Hs, Ws, 3] or packed I420
+        [B, T, Hs·3/2, Ws]), or for ``pose_bilstm`` landmarks
+        [B, T, 543, 3]."""
         module = self.module
+        if not self.takes_rgb:
+            def pose_fn(landmarks: torch.Tensor) -> torch.Tensor:
+                with torch.inference_mode():
+                    return module(landmarks)
+
+            return pose_fn
+        pp: PreprocessConfig = self.cfg.preprocess  # type: ignore[attr-defined]
 
         def fn(frames_u8: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():
@@ -115,8 +153,8 @@ def load_model(
     linears and attention are cast to ``compute_dtype``
     (:func:`asltpu_torch.models.common.cast_for_compute`); every BatchNorm
     and LayerNorm keeps fp32 parameters and statistics, and so do the parts
-    :func:`fp32_modules` names. The module is laid out channels_last.
-    ``device`` defaults to the card.
+    :func:`fp32_modules` names (all of ``pose_bilstm``). The module is laid
+    out channels_last. ``device`` defaults to the card.
     """
     dev = resolve_device(device)
     cfg = get_config(name, **overrides)
@@ -145,17 +183,25 @@ def load_clip(path: str, cfg: Optional[PreprocessConfig] = None) -> np.ndarray:
 def predict(
     model: Model,
     clip: np.ndarray,
+    landmarks: Optional[np.ndarray] = None,
     gloss_names: Optional[Sequence[str]] = None,
 ) -> Tuple[Any, np.ndarray]:
-    """Staged frames [T, ...] or [B, T, ...] → (gloss ids/names, logits)."""
-    pp: PreprocessConfig = model.cfg.preprocess  # type: ignore[attr-defined]
-    # Per-clip staged rank: T + frame dims (3 for RGB HWC, 2 for packed I420
-    # planes); a batch carries one more leading axis.
-    add_batch = clip.ndim != 2 + len(pp.staged_frame_shape)
+    """Staged frames [T, ...] or [B, T, ...] → (gloss ids/names, logits).
+    For ``pose_bilstm`` ``clip`` is landmarks [T, 543, 3] or
+    [B, T, 543, 3]. ``landmarks`` is for the fusion model, which the port
+    does not serve yet (ROADMAP queue 1, item 9)."""
+    if model.takes_rgb:
+        pp: PreprocessConfig = model.cfg.preprocess  # type: ignore[attr-defined]
+        # Per-clip staged rank: T + frame dims (3 for RGB HWC, 2 for packed
+        # I420 planes); a batch carries one more leading axis.
+        add_batch = clip.ndim != 2 + len(pp.staged_frame_shape)
+    else:
+        add_batch = clip.ndim != 4
+        clip = clip.astype(np.float32, copy=False)
     if add_batch:
         clip = clip[None]
-    frames = torch.from_numpy(np.ascontiguousarray(clip)).to(model.device)
-    logits = model.predict_fn()(frames).cpu().numpy()
+    x = torch.from_numpy(np.ascontiguousarray(clip)).to(model.device)
+    logits = model.predict_fn()(x).cpu().numpy()
     ids = logits.argmax(axis=-1)
     glosses: Any = ids
     if gloss_names is not None:
@@ -167,30 +213,89 @@ def predict(
 
 def stream_predict(
     model: Model,
-    paths: Sequence[str],
+    paths: Sequence[Any],
     batch_size: int = 8,
     num_decode_workers: int = 4,
     decode_backend: str = "auto",
+    decode_fast: bool = False,
+    landmarks_for: Optional[Callable[[Any], np.ndarray]] = None,
     gloss_names: Optional[Sequence[str]] = None,
     prefetch_depth: int = 2,
     skip_errors: bool = False,
-) -> Iterator[Tuple[str, Any, np.ndarray]]:
-    """Batched streaming inference: decode workers → double-buffered
-    prefetch to the device → predict; yields (path, gloss, logits) as
-    batches complete. ``skip_errors=True`` drops undecodable clips."""
-    pp: PreprocessConfig = model.cfg.preprocess  # type: ignore[attr-defined]
+    yield_items: bool = False,
+) -> Iterator[Tuple[Any, Any, np.ndarray]]:
+    """Batched streaming inference: decode → double-buffered prefetch to the
+    device → predict; yields (path, gloss, logits) as batches complete.
+
+    Items are video paths or clip records
+    (:class:`~asltpu_torch.data.wlasl.ClipRecord`: segment and signer box
+    honoured); results carry the item's path, or the item itself with
+    ``yield_items=True`` (two records of one video stay apart).
+
+    ``landmarks_for``: callable path → landmarks [T, 543, 3], required by
+    a landmark model (``pose_bilstm``); one marked ``takes_record = True``
+    receives the item instead of its path. The pose model decodes no video:
+    its batches are the landmarks alone. ``decode_fast=True`` (with
+    ``decode_backend="av"``) turns on the av decoder's codec-level fast
+    modes (``asltpu_torch.native.FAST_ALL``): pixels differ slightly from
+    the exact decode. ``skip_errors=True`` drops clips that do not decode or
+    whose landmarks do not load.
+    """
+    items = list(paths)
+    paths = [it.path if hasattr(it, "path") else it for it in items]
+    out_of = items if yield_items else paths
+    if model.takes_landmarks and landmarks_for is None:
+        raise ValueError(
+            f"model '{type(model.cfg).__name__}' consumes landmarks: pass "
+            "landmarks_for=<callable path -> [T,543,3]>"
+        )
     fn = model.predict_fn()
-    paths = list(paths)
-    on_error = "skip" if skip_errors else "raise"
-    pool = make_decode_pool(pp, num_workers=num_decode_workers,
-                            backend=decode_backend)
-    try:
-        with Prefetcher(pool.map_batches(paths, batch_size, on_error),
-                        depth=prefetch_depth, device=model.device) as pf:
-            for frames, kept in pf:
-                logits = fn(frames).cpu().numpy()[: len(kept)]
+
+    def results(batches):
+        with Prefetcher(batches, depth=prefetch_depth, device=model.device) as pf:
+            for x, kept in pf:
+                logits = fn(x).cpu().numpy()[: len(kept)]
                 ids = logits.argmax(axis=-1)
                 for j, k in enumerate(kept):
-                    yield paths[k], gloss_label(ids[j], gloss_names), logits[j]
+                    yield out_of[k], gloss_label(ids[j], gloss_names), logits[j]
+
+    if not model.takes_rgb:
+        yield from results(_landmark_batches(items, paths, batch_size,
+                                             landmarks_for, skip_errors))
+        return
+
+    pp: PreprocessConfig = model.cfg.preprocess  # type: ignore[attr-defined]
+    if decode_fast and decode_backend != "av":
+        raise ValueError(
+            "decode_fast requires decode_backend='av' (codec-level fast modes "
+            "live in the libavcodec backend)"
+        )
+    pool = make_decode_pool(pp, num_workers=num_decode_workers, backend=decode_backend,
+                            fast_flags=native.FAST_ALL if decode_fast else 0)
+    try:
+        yield from results(pool.map_batches(items, batch_size,
+                                            "skip" if skip_errors else "raise"))
     finally:
         pool.shutdown()
+
+
+def _landmark_batches(items, paths, batch_size, landmarks_for, skip_errors):
+    """(landmarks [B, T, 543, 3] float32, kept indices) per batch of items;
+    under ``skip_errors`` an item whose landmarks do not load is dropped
+    and a batch with none left is skipped."""
+    takes_record = bool(getattr(landmarks_for, "takes_record", False))
+    for i in range(0, len(items), batch_size):
+        loaded, kept = [], []
+        for k in range(i, min(i + batch_size, len(items))):
+            try:
+                lm = landmarks_for(items[k] if takes_record else paths[k])
+            except Exception:
+                if not skip_errors:
+                    raise
+                _log.warning("skipping clip with unloadable landmarks: %s",
+                             paths[k], exc_info=True)
+                continue
+            loaded.append(np.asarray(lm, np.float32))
+            kept.append(k)
+        if kept:
+            yield pad_to_batch(np.stack(loaded), batch_size), kept

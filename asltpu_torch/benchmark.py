@@ -7,9 +7,10 @@ lanes, from staged uint8 frames and from mp4 files to logits.
 
 Counterpart of the JAX bench (``asltpu/benchmark.py``, ``bench.py``), which
 stays the JAX package's own. Cells, one per (family, lane):
-``mobilenet_gru`` at batch 32 on the rgb and the yuv420 lane and
-``resnet_transformer`` at batch 16 on the rgb lane, each at full width with
-random weights from ``--seed``. Per cell:
+``mobilenet_gru`` at batch 32 on the rgb and the yuv420 lane,
+``resnet_transformer`` at batch 16 on the rgb lane and ``pose_bilstm`` at
+batch 64 on landmarks, each at full width with random weights from
+``--seed``. Per video cell:
 
 - ``device_only``: back-to-back ``predict_fn`` calls on a batch already on
   the device, with the CUDA preprocess kernel and with ``use_pallas=False``
@@ -20,18 +21,32 @@ random weights from ``--seed``. Per cell:
   predict → logits back on the host, cut into contiguous windows; the
   median window's clips/s, the fill time (to the first batch on the
   device) apart;
-- ``decode``: decode-only clips/s of the process pool by worker count, each
-  count over a corpus of fresh synthetic mp4s (a file decoded before runs
-  faster again);
-- ``mp4_stream``: ``stream_predict`` over a fresh corpus, mp4 → logits;
-  its top-1 must equal ``predict``'s on the same staged clips;
+- ``decode``: decode-only clips/s by backend, each over a corpus of fresh
+  synthetic mp4s (a file decoded before runs faster again): the process
+  pool at each ``--decode-workers`` count (each worker decodes a clip with
+  the native OpenCV library where it is built, else with cv2, as the JAX
+  package's pool does), the native OpenCV and libav
+  libraries at the largest count of threads, and libav with
+  ``decode_fast`` (``FAST_ALL``);
+- ``mp4_stream``: ``stream_predict`` over a fresh corpus, mp4 → logits,
+  with ``decode_backend="auto"`` (the backend it chose is named) and
+  ``"process"``; its top-1 must equal ``predict``'s on the same staged
+  clips;
 - ``gflops_per_clip`` (``FlopCounterMode`` over the model's forward in one
   predict, divided by the batch; the preprocess kernel is not a PyTorch op
   and adds none) and, on the card, ``mfu`` against the H100 SXM bf16 dense
   peak.
 
+The ``pose_bilstm`` cell has ``device_only`` (no preprocess kernel: its
+``kernel`` is null with 0 launches, and ``gflops_per_clip`` counts the
+LSTM's and the classifier's multiply-adds from the shapes) and ``stream``
+(seeded landmark batches through ``Prefetcher``); it decodes no video.
+
 ``decode`` and ``mp4_stream`` need OpenCV; without it each is
-``{"ran": false, "why": ...}`` and the rest runs. Device times come from
+``{"ran": false, "why": ...}`` and the rest runs. A native library whose
+toolchain is missing (``g++``, the OpenCV or libav headers) is
+``{"ran": false, "why": <what is missing>}``; one whose toolchain is
+present but whose build or decode fails fails the run. Device times come from
 CUDA events on the card; with ``--device cpu`` every time is the host
 clock's and says so. Without a card and without ``--device cpu`` the run
 fails; a failing cell raises. The last line of standard output is one JSON
@@ -58,10 +73,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from asltpu_torch import api
+from asltpu_torch import api, native
 from asltpu_torch.data.decode import make_decode_pool
 from asltpu_torch.data.prefetch import Prefetcher
-from asltpu_torch.data.synthetic import write_video
+from asltpu_torch.data.synthetic import synthetic_landmarks, write_video
 from asltpu_torch.models.resnet import ResNet18
 from asltpu_torch.models.temporal import GRUHead
 from asltpu_torch.models.video import MobileNetV2GRU
@@ -74,6 +89,7 @@ CELLS: Tuple[Tuple[str, str, int], ...] = (
     ("mobilenet_gru", "rgb", 32),
     ("mobilenet_gru", "yuv420", 32),
     ("resnet_transformer", "rgb", 16),
+    ("pose_bilstm", "landmarks", 64),
 )
 # The yuv420 lane is the JAX bench's transfer-thin configuration: the host
 # resizes to 256 and crops 224², and sends packed I420.
@@ -83,8 +99,14 @@ LANES = {
                "host_resize_short": 256, "staging_format": "yuv420"},
 }
 KERNELS = {"rgb": "preprocess_rgb", "yuv420": "preprocess_yuv420"}
-# H100 SXM data sheet: bf16 dense tensor-core peak.
+# H100 SXM data sheet: bf16 dense tensor-core peak, and fp32 outside the
+# tensor cores (the pose model runs fp32 with TF32 off).
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_FP32_FLOP_PER_S = 67e12
+# Native libraries measured beside the process pool:
+# (row, make_decode_pool backend, native library, fast flags).
+NATIVE_DECODE = (("native", "native", "opencv", 0), ("av", "av", "av", 0),
+                 ("av_fast", "av", "av", native.FAST_ALL))
 
 
 def card_identity() -> Dict[str, object]:
@@ -267,14 +289,17 @@ def make_corpus(writers: concurrent.futures.Executor, root: str, prefix: str,
     return paths
 
 
-def decode_rate(pp, paths: Sequence[str], batch: int, workers: int) -> float:
-    """Decode-only clips/s of the process pool over ``paths``, timed after
-    each worker has decoded one clip of its own (its start-up)."""
-    pool = make_decode_pool(pp, num_workers=workers, backend="process")
+def decode_rate(pp, paths: Sequence[str], batch: int, workers: int,
+                backend: str = "process", fast_flags: int = 0) -> float:
+    """Decode-only clips/s of one backend over ``paths``, timed after a
+    first batch of ``workers`` clips (the pool's start-up: worker
+    processes, or the native library's load)."""
+    pool = make_decode_pool(pp, num_workers=workers, backend=backend,
+                            fast_flags=fast_flags)
     try:
         warm, timed = paths[:workers], paths[workers:]
-        for f in [pool.submit(p) for p in warm]:
-            f.result()
+        for _ in pool.map_batches(warm, workers):
+            pass
         t0 = time.perf_counter()
         n = sum(len(kept) for _, kept in pool.map_batches(timed, batch))
         return n / (time.perf_counter() - t0)
@@ -283,19 +308,19 @@ def decode_rate(pp, paths: Sequence[str], batch: int, workers: int) -> float:
 
 
 def mp4_stream(model: api.Model, paths: Sequence[str], batch: int, workers: int,
-               n_windows: int) -> Dict[str, object]:
-    """``stream_predict`` over ``paths``: the first batch (pool start-up,
-    decode of a batch, the first predict) is the fill, the later batches
-    the windows. The pool decodes up to four batches ahead, so the first
-    window can start with clips decoded during the fill; the median window
-    is the stream's rate. Its top-1 must equal ``predict``'s on the same
-    staged clips, batched the same way (decoded again by a pool of its
-    own, after the clock)."""
+               n_windows: int, backend: str) -> Dict[str, object]:
+    """``stream_predict`` over ``paths`` with ``decode_backend=backend``:
+    the first batch (pool start-up, decode of a batch, the first predict)
+    is the fill, the later batches the windows. The pool decodes ahead, so
+    the first window can start with clips decoded during the fill; the
+    median window is the stream's rate. Its top-1 must equal ``predict``'s
+    on the same staged clips, batched the same way (decoded again by a pool
+    of the same backend, after the clock)."""
     t_start = time.perf_counter()
     stamps, logits = [], []
     for _, _, lg in api.stream_predict(model, paths, batch_size=batch,
                                        num_decode_workers=workers,
-                                       decode_backend="process"):
+                                       decode_backend=backend):
         stamps.append(time.perf_counter())
         logits.append(lg)
     ends = [stamps[min(i + batch, len(stamps)) - 1] for i in range(0, len(stamps), batch)]
@@ -304,7 +329,8 @@ def mp4_stream(model: api.Model, paths: Sequence[str], batch: int, workers: int,
         raise ValueError("mp4 stream: the corpus must hold at least two batches")
     out = _windows(t_start, ends[0], list(zip(ends[1:], sizes[1:])), n_windows,
                    fill_clips=sizes[0])
-    pool = make_decode_pool(model.cfg.preprocess, num_workers=workers, backend="process")
+    pool = make_decode_pool(model.cfg.preprocess, num_workers=workers, backend=backend)
+    out["backend"] = pool.backend  # what "auto" chose
     try:
         want = np.concatenate([api.predict(model, frames)[1][:len(kept)]
                                for frames, kept in pool.map_batches(paths, batch)])
@@ -316,6 +342,29 @@ def mp4_stream(model: api.Model, paths: Sequence[str], batch: int, workers: int,
                              "staged clips")
     out.update(top1_equal_predict=True,
                max_logit_err_vs_predict=float(np.abs(got - want).max()))
+    return out
+
+
+def decode_rates(cfg, corpus: Callable[..., List[str]], prefix: str, batch: int,
+                 opts: argparse.Namespace, seed0: int) -> Dict[str, object]:
+    """Decode-only clips/s by backend, each over a fresh corpus: the process
+    pool at each worker count, then the native libraries at the largest
+    count of threads (``{"ran": false, "why": ...}`` where a library's
+    toolchain is missing; a build or decode that fails raises)."""
+    rates: Dict[str, object] = {}
+    for i, w in enumerate(opts.decode_workers):
+        paths = corpus(f"{prefix}w{w}_", opts.corpus_clips + w, seed0 + 100 * i)
+        rates[str(w)] = decode_rate(cfg, paths, batch, w)
+    out: Dict[str, object] = {"process": {"ran": True, "clips_per_s_by_workers": rates}}
+    threads = max(opts.decode_workers)
+    for k, (row, backend, lib, flags) in enumerate(NATIVE_DECODE):
+        missing = native.toolchain_missing(lib)
+        if missing:
+            out[row] = {"ran": False, "why": missing}
+            continue
+        paths = corpus(f"{prefix}{row}_", opts.corpus_clips + threads, seed0 + 500 + 100 * k)
+        out[row] = {"ran": True, "threads": threads, "fast_flags": flags,
+                    "clips_per_s": decode_rate(cfg, paths, batch, threads, backend, flags)}
     return out
 
 
@@ -382,17 +431,67 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
     if corpus is None:
         cell["decode"] = cell["mp4_stream"] = {"ran": False, "why": _cv2_missing()}
         return cell
-    rates = {}
-    for i, w in enumerate(opts.decode_workers):
-        paths = corpus(f"{family}_{lane}_w{w}_", opts.corpus_clips + w, seed0 + 100 * i)
-        rates[str(w)] = decode_rate(cfg, paths, batch, w)
-    cell["decode"] = {"ran": True, "backend": "process", "clips_per_s_by_workers": rates,
-                      "clips": opts.corpus_clips,
-                      "clip": {"size": [opts.clip_size] * 2, "frames": opts.clip_frames}}
-    paths = corpus(f"{family}_{lane}_mp4_", opts.mp4_batches * batch, seed0 + 900)
+    cell["decode"] = {"ran": True, "clips": opts.corpus_clips,
+                      "clip": {"size": [opts.clip_size] * 2, "frames": opts.clip_frames},
+                      **decode_rates(cfg, corpus, f"{family}_{lane}_", batch, opts, seed0)}
     workers = max(opts.decode_workers)
-    cell["mp4_stream"] = {"ran": True, "workers": workers,
-                          **mp4_stream(model, paths, batch, workers, opts.windows)}
+    cell["mp4_stream"] = {"ran": True, "workers": workers}
+    for k, backend in enumerate(("auto", "process")):
+        paths = corpus(f"{family}_{lane}_mp4_{backend}_", opts.mp4_batches * batch,
+                       seed0 + 900 + 1000 * k)
+        cell["mp4_stream"][backend] = mp4_stream(model, paths, batch, workers,
+                                                 opts.windows, backend)
+    return cell
+
+
+def pose_gflops_per_clip(cfg) -> float:
+    """Multiply-adds of one ``pose_bilstm`` clip, ×2: per layer and
+    direction, the input projection of every step (F × 4H) and the
+    recurrence (H × 4H); then the classifier (2H × classes)."""
+    t, h = cfg.num_frames, cfg.hidden_size
+    f, macs = cfg.num_landmarks * cfg.landmark_dim, 0
+    for _ in range(cfg.num_layers):
+        macs += 2 * t * (f * 4 * h + h * 4 * h)
+        f = 2 * h
+    return 2 * (macs + 2 * h * cfg.num_classes) / 1e9
+
+
+def bench_pose_cell(batch: int, opts: argparse.Namespace,
+                    device: torch.device) -> Dict[str, object]:
+    """``pose_bilstm``: device-only clips/s on a batch of seeded landmarks
+    already on the device, and the host-staged stream of seeded batches."""
+    clock = Clock.for_device(device)
+    over = {"num_frames": opts.frames} if opts.frames else {}
+    model = api.load_model("pose_bilstm", seed=opts.seed, device=device, **over)
+    cfg = model.cfg
+    host = [synthetic_landmarks(batch, cfg.num_frames, seed=opts.seed + 1 + i)
+            for i in range(opts.stream_batches)]
+    x = torch.from_numpy(host[0]).to(device)
+    fn = model.predict_fn()
+    logits = fn(x)
+    if logits.shape != (batch, cfg.num_classes) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"pose_bilstm: logits {tuple(logits.shape)} not finite "
+                             "or of the wrong shape")
+    ms = clock.ms(lambda: fn(x))
+    peak_gb = None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        fn(x)
+        torch.cuda.synchronize(device)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    gflops = pose_gflops_per_clip(cfg)
+    cell: Dict[str, object] = {
+        "family": "pose_bilstm", "lane": "landmarks", "batch": batch,
+        "input": list(x.shape), "compute_dtype": cfg.compute_dtype, "device": str(device),
+        "device_only": {"clips_per_s": batch / ms * 1e3, "ms_per_batch": ms,
+                        "kernel": None, "kernel_launches_per_predict": 0,
+                        "peak_mem_gb": peak_gb, "timer": clock.source},
+        "gflops_per_clip": gflops,
+    }
+    if device.type == "cuda":
+        cell["mfu_fp32"] = gflops * 1e9 * batch / ms * 1e3 / PEAK_FP32_FLOP_PER_S
+    cell["stream"] = host_stream(model, host, opts.windows)
     return cell
 
 
@@ -411,7 +510,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="override the staged frame's side (yuv420: the host resize)")
     ap.add_argument("--stream-batches", type=int, default=12)
     ap.add_argument("--windows", type=int, default=3)
-    ap.add_argument("--decode-workers", default="1,2,4")
+    ap.add_argument("--decode-workers", default="1,2,4",
+                    help="process pool sizes; the native libraries take the largest "
+                         "as their thread count")
     ap.add_argument("--corpus-clips", type=int, default=64,
                     help="clips timed per decode worker count")
     ap.add_argument("--mp4-batches", type=int, default=12,
@@ -445,8 +546,11 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
             family, lane = pair.split(":")
             batch = opts.batch or batches[(family, lane)]
             t0 = time.perf_counter()
-            cell = bench_cell(family, lane, batch, opts, device, corpus,
-                              seed0=(opts.seed * 10 + i) * 10_000)
+            if family == "pose_bilstm":
+                cell = bench_pose_cell(batch, opts, device)
+            else:
+                cell = bench_cell(family, lane, batch, opts, device, corpus,
+                                  seed0=(opts.seed * 10 + i) * 10_000)
             cell["seconds"] = time.perf_counter() - t0
             print(json.dumps({"cell": f"{family}/{lane}", **cell}), file=sys.stderr,
                   flush=True)

@@ -13,6 +13,9 @@ Layout rules (flax → torch):
   - GRU ``l{k}_wi [F, 3H]`` / ``l{k}_wh [H, 3H]`` → ``weight_ih_l{k}`` /
     ``weight_hh_l{k}`` transposed; ``l{k}_bi``/``l{k}_bh`` →
     ``bias_ih_l{k}``/``bias_hh_l{k}``
+  - bidirectional LSTM ``l{k}_{fwd,bwd}_{wi,wh}`` → ``weight_{ih,hh}_l{k}``
+    (``_reverse`` for bwd) transposed; the one bias ``b`` → ``bias_ih = b``
+    and ``bias_hh = 0`` (``asltpu.ckpt.import_torch_rnn`` sums them back)
   - Dense kernel (I, O) → Linear weight (O, I)
   - attention ``query``/``key``/``value`` kernels [d, heads, hd] → the
     q;k;v row blocks of ``in_proj_weight`` [3d, d] (biases [heads, hd] →
@@ -33,6 +36,7 @@ from torch import nn
 from asltpu_torch.config import (
     MobileNetV2GRUConfig,
     ModelConfig,
+    PoseBiLSTMConfig,
     ResNet18TransformerConfig,
 )
 
@@ -174,14 +178,32 @@ def gru_head_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Ten
     return sd
 
 
+def bilstm_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
+    """JAX ``PoseBiLSTM`` params → ``lstm.*`` (``torch.nn.LSTM(
+    bidirectional=True)`` names) + ``fc.*``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k in range(num_layers):
+        for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+            p = f"l{k}_{direction}_"
+            b = _vec(params[p + "b"])
+            sd[f"lstm.weight_ih_l{k}{sfx}"] = _vec(np.asarray(params[p + "wi"]).T)
+            sd[f"lstm.weight_hh_l{k}{sfx}"] = _vec(np.asarray(params[p + "wh"]).T)
+            sd[f"lstm.bias_ih_l{k}{sfx}"] = b
+            sd[f"lstm.bias_hh_l{k}{sfx}"] = torch.zeros_like(b)
+    sd.update(_linear(params["fc"], "fc"))
+    return sd
+
+
 def state_dict_from_jax(cfg: ModelConfig, variables: Variables) -> Dict[str, torch.Tensor]:
     """The port model's ``state_dict`` from the JAX model's variables, given
-    as a numpy tree (``jax.device_get(model.variables)``: ``params`` plus
-    ``batch_stats``)."""
+    as a numpy tree (``jax.device_get(model.variables)``: ``params``, plus
+    ``batch_stats`` where the model has BatchNorm)."""
+    if isinstance(cfg, PoseBiLSTMConfig):
+        return bilstm_state_dict(variables["params"], cfg.num_layers)
     if not isinstance(cfg, (MobileNetV2GRUConfig, ResNet18TransformerConfig)):
         raise NotImplementedError(
             f"weights of {type(cfg).__name__} are not ported yet "
-            "(ROADMAP queue 1, items 7, 9, 10)"
+            "(ROADMAP queue 1, items 9, 10)"
         )
     params, stats = variables["params"], variables["batch_stats"]
     if isinstance(cfg, MobileNetV2GRUConfig):

@@ -1,5 +1,5 @@
 """Host video decode: the one stage that stays on the host CPU. Counterpart
-of the OpenCV path of ``asltpu/data/decode.py``; it produces the same bytes.
+of ``asltpu/data/decode.py``; it produces the same bytes.
 
 - Sampled-only decode: the uniform temporal sampling indices are computed
   first, and only those frames are converted and staged; the others are
@@ -8,24 +8,33 @@ of the OpenCV path of ``asltpu/data/decode.py``; it produces the same bytes.
   the fixed staging resolution, so the device sees one shape. The device
   does the rest (:mod:`asltpu_torch.ops.preprocess`).
 
-OpenCV is imported when a clip is decoded, not when this module is. The
-native C++ and libavcodec batch decoders of the JAX package are not ported
-yet (ROADMAP queue 1, item 5): ``make_decode_pool`` refuses those backends.
-Clip records (WLASL segments and signer boxes) arrive with the WLASL loader
-(ROADMAP queue 1, item 11); ``decode_sampled_frames`` already takes both.
+Backends (:func:`make_decode_pool`): the native C++ libraries of
+:mod:`asltpu_torch.native` decode whole batches on native threads with the
+interpreter lock released ("native", OpenCV's C++ API, byte-identical to
+the cv2 path here; "av", libavcodec directly, with codec-level fast modes);
+the Python pools decode with cv2 in worker processes or threads. Items are
+video paths or clip records (:class:`~asltpu_torch.data.wlasl.ClipRecord`),
+whose frame segment and signer box are honoured.
+
+Nothing here imports torch, and OpenCV is imported when a clip is decoded:
+a spawned decode worker starts with numpy, this module and what it imports.
 """
 
 from __future__ import annotations
 
+import logging
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from asltpu_torch import native
 from asltpu_torch.config import PreprocessConfig
 from asltpu_torch.data.pad import pad_to_batch
-from asltpu_torch.ops.preprocess import resize_plan, uniform_sample_indices
+from asltpu_torch.data.staging import resize_plan, uniform_sample_indices
+
+_log = logging.getLogger("asltpu_torch.decode")
 
 
 def _cv2():
@@ -36,6 +45,26 @@ def _cv2():
             "video decode needs OpenCV (the cv2 module), which is not installed"
         ) from e
     return cv2
+
+
+def probe_video(path: str) -> Tuple[int, float]:
+    """(frame_count, fps) of a video container. Containers that report no
+    frame count are counted by ``grab()`` (no conversion); a missing or
+    non-positive fps falls back to 25, as cv2 itself assumes."""
+    cv2 = _cv2()
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video: {path}")
+    try:
+        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        if total <= 0:
+            total = 0
+            while cap.grab():
+                total += 1
+        fps = float(cap.get(cv2.CAP_PROP_FPS) or 0.0)
+        return total, fps if fps > 0 else 25.0
+    finally:
+        cap.release()
 
 
 def decode_sampled_frames(
@@ -191,15 +220,130 @@ def decode_clip(
     path: str, cfg: PreprocessConfig, num_frames: Optional[int] = None
 ) -> np.ndarray:
     """Video path → staged uint8 frames [T, Hs, Ws, 3] (or packed I420
-    [T, Hs·3/2, Ws]) ready for the device preprocess."""
+    [T, Hs·3/2, Ws]) ready for the device preprocess. On the native OpenCV
+    library where it is built (the same bytes), else on cv2."""
+    t = num_frames or cfg.num_frames
+    if native.available():
+        return native.decode_clip_native(
+            path, t, cfg.staging_size, cfg.host_resize_short,
+            yuv420=cfg.staging_format == "yuv420")
+    return decode_sampled_frames(path, t, cfg.staging_size, cfg.host_resize_short,
+                                 staging_format=cfg.staging_format)
+
+
+def decode_record(rec, cfg: PreprocessConfig) -> np.ndarray:
+    """A :class:`~asltpu_torch.data.wlasl.ClipRecord` → staged frames,
+    honouring its frame segment and signer box; native where built."""
+    if native.available():
+        return native.decode_clip_native(
+            rec.path, cfg.num_frames, cfg.staging_size, cfg.host_resize_short,
+            frame_start=rec.frame_start, frame_end=rec.frame_end, bbox=rec.bbox,
+            yuv420=cfg.staging_format == "yuv420")
     return decode_sampled_frames(
-        path, num_frames or cfg.num_frames, cfg.staging_size,
-        cfg.host_resize_short, staging_format=cfg.staging_format,
-    )
+        rec.path, cfg.num_frames, cfg.staging_size, cfg.host_resize_short,
+        frame_start=rec.frame_start, frame_end=rec.frame_end, bbox=rec.bbox,
+        staging_format=cfg.staging_format)
+
+
+def decode_item(item, cfg: PreprocessConfig) -> np.ndarray:
+    """A path or a clip record → staged frames."""
+    if hasattr(item, "path") and hasattr(item, "frame_start"):
+        return decode_record(item, cfg)
+    return decode_clip(item, cfg)
 
 
 def _limit_cv2_threads():
     _cv2().setNumThreads(0)
+
+
+def _check_on_error(on_error: str) -> None:
+    if on_error not in ("raise", "skip"):
+        raise ValueError(f"on_error must be raise|skip, got {on_error}")
+
+
+class NativeDecodePool:
+    """Batch decoder on a native library (:mod:`asltpu_torch.native`): each
+    batch decodes on ``num_workers`` native threads in one call, with the
+    interpreter lock released, straight into one uint8 array, and
+    ``decode_ahead`` batches decode in the background while the consumer
+    handles the current one.
+
+    ``lib="opencv"`` is byte-identical to the cv2 path; ``lib="av"`` is
+    libavcodec directly (close to it, not byte-identical) and takes
+    ``fast_flags``, an OR of ``asltpu_torch.native.FAST_*``."""
+
+    def __init__(self, cfg: PreprocessConfig, num_workers: int = 4,
+                 lib: str = "opencv", fast_flags: int = 0):
+        if lib not in ("opencv", "av"):
+            raise ValueError(f"lib must be opencv|av, got {lib}")
+        if lib == "av" and not native.av_available():
+            raise RuntimeError(
+                f"native av decode unavailable: {native.av_unavailable_reason()}")
+        if lib == "opencv" and not native.available():
+            raise RuntimeError(
+                f"native decode unavailable: {native.unavailable_reason()}")
+        if fast_flags and lib != "av":
+            raise ValueError("fast_flags are codec-level modes of the av library")
+        self.cfg = cfg
+        self.lib = lib
+        self.backend = "native" if lib == "opencv" else "av"  # make_decode_pool's name
+        self.fast_flags = fast_flags
+        self._n = num_workers
+        # Chunks decoding ahead of the consumer: at 2 the next chunk's
+        # Python-side set-up (ctypes arguments, the output array) is off the
+        # critical path; each level keeps one more decoded batch resident.
+        self.decode_ahead = 2
+        self._pipeline = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="asltpu-torch-native-decode")
+
+    def _decode(self, items):
+        cfg = self.cfg
+        yuv420 = cfg.staging_format == "yuv420"
+        if self.lib == "av":
+            return native.decode_batch_av(
+                items, cfg.num_frames, cfg.staging_size, cfg.host_resize_short,
+                yuv420=yuv420, fast_flags=self.fast_flags, n_threads=self._n)
+        return native.decode_batch_native(
+            items, cfg.num_frames, cfg.staging_size, cfg.host_resize_short,
+            yuv420=yuv420, n_threads=self._n)
+
+    def map_batches(self, paths: Sequence, batch_size: int,
+                    on_error: str = "raise"):
+        """Same contract as :meth:`DecodePool.map_batches`: yields
+        ``(frames [B, ...] u8, kept_indices)`` in order; a short or partly
+        failed batch is padded by repeating its last good clip."""
+        _check_on_error(on_error)
+        chunks = [(i, paths[i : i + batch_size])
+                  for i in range(0, len(paths), batch_size)]
+        ahead = max(1, int(self.decode_ahead))
+        futs = [self._pipeline.submit(self._decode, chunks[k][1])
+                for k in range(min(ahead, len(chunks)))]
+        try:
+            for ci, (base, items) in enumerate(chunks):
+                frames, ok = futs[ci].result()
+                futs[ci] = None  # a Future keeps its result array alive
+                nxt = ci + ahead
+                if nxt < len(chunks):
+                    futs.append(self._pipeline.submit(self._decode, chunks[nxt][1]))
+                good = [j for j in range(len(items)) if ok[j] == 0]
+                if len(good) < len(items):
+                    bad = [items[j] for j in range(len(items)) if ok[j] != 0]
+                    if on_error == "raise":
+                        raise IOError(f"cannot decode clip(s): {bad}")
+                    _log.warning("skipping undecodable clip(s): %s", bad)
+                    if not good:
+                        continue
+                    frames = frames[good]
+                yield pad_to_batch(frames, batch_size), [base + j for j in good]
+        finally:
+            for f in futs:
+                if f is not None:
+                    f.cancel()
+
+    def shutdown(self):
+        """Cancel the queued chunks and wait for the one decoding, so no
+        thread outlives the pool."""
+        self._pipeline.shutdown(wait=True, cancel_futures=True)
 
 
 class DecodePool:
@@ -208,7 +352,7 @@ class DecodePool:
 
     ``use_processes=True`` decodes in worker processes (started with
     ``spawn``) instead of threads, so decode keeps going while the consumer
-    thread holds the interpreter lock."""
+    thread holds the interpreter lock; each staged clip comes back pickled."""
 
     def __init__(
         self,
@@ -217,6 +361,7 @@ class DecodePool:
         use_processes: bool = False,
     ):
         self.cfg = cfg
+        self.backend = "process" if use_processes else "thread"  # make_decode_pool's name
         if use_processes:
             self._pool = ProcessPoolExecutor(
                 max_workers=num_workers,
@@ -231,8 +376,10 @@ class DecodePool:
                 max_workers=num_workers, thread_name_prefix="asltpu-torch-decode"
             )
 
-    def submit(self, path: str):
-        return self._pool.submit(decode_clip, path, self.cfg)
+    def submit(self, item):
+        """``item``: a video path or a clip record (segment and box
+        honoured)."""
+        return self._pool.submit(decode_item, item, self.cfg)
 
     def map_batches(
         self,
@@ -247,8 +394,7 @@ class DecodePool:
         ``on_error="skip"`` drops undecodable clips with a warning instead
         of failing the stream; a batch whose clips all fail is skipped.
         """
-        if on_error not in ("raise", "skip"):
-            raise ValueError(f"on_error must be raise|skip, got {on_error}")
+        _check_on_error(on_error)
         # Keep at most a few batches of decodes in flight so a fast decoder
         # cannot pile a whole corpus of frames into host memory.
         window = max(batch_size * 4, 8)
@@ -275,12 +421,8 @@ class DecodePool:
                 except Exception:
                     if on_error == "raise":
                         raise
-                    import logging
-
-                    logging.getLogger("asltpu_torch.decode").warning(
-                        "skipping undecodable clip %s", paths[i + j],
-                        exc_info=True,
-                    )
+                    _log.warning("skipping undecodable clip %s", paths[i + j],
+                                 exc_info=True)
             if not clips:
                 continue
             yield pad_to_batch(np.stack(clips), batch_size), kept
@@ -291,22 +433,35 @@ class DecodePool:
         self._pool.shutdown(wait=True, cancel_futures=True)
 
 
+BACKENDS = ("auto", "native", "av", "process", "thread")
+
+
 def make_decode_pool(
     cfg: PreprocessConfig, num_workers: int = 4, backend: str = "auto",
+    fast_flags: int = 0,
 ):
-    """Decode-pool factory. ``backend``: "thread", or "process" (also what
-    "auto" means until the native decoder is ported): worker processes keep
-    decoding while the consumer holds the interpreter lock. "native" and
-    "av" (the JAX package's C++ batch decoders) are not ported yet."""
-    if backend in ("native", "av"):
-        raise NotImplementedError(
-            f"decode backend {backend!r} is not ported yet "
-            "(ROADMAP queue 1, item 5: the native/av ctypes decode backends)"
-        )
-    if backend not in ("auto", "process", "thread"):
+    """Decode-pool factory. ``backend``:
+
+    - "native": the OpenCV C++ batch decoder (byte-identical to cv2);
+    - "av": the libavcodec C++ batch decoder, with ``fast_flags`` (an OR of
+      ``asltpu_torch.native.FAST_*``); close to cv2, not byte-identical;
+    - "process" / "thread": cv2 in worker processes or threads;
+    - "auto": native, else process, else thread. Never av: its output is
+      not byte-identical, so callers choose it.
+
+    "native" and "av" raise where their library is unavailable, with the
+    reason; ``fast_flags`` with any backend but "av" raises.
+    """
+    if backend not in BACKENDS:
         raise ValueError(
             f"unknown decode backend {backend!r}; expected one of "
-            "auto/process/thread"
-        )
-    return DecodePool(cfg, num_workers=num_workers,
-                      use_processes=backend != "thread")
+            + "/".join(BACKENDS))
+    if fast_flags and backend != "av":
+        raise ValueError(
+            "fast_flags are codec-level modes of the 'av' backend; "
+            f"backend={backend!r} would ignore them")
+    if backend == "av":
+        return NativeDecodePool(cfg, num_workers, lib="av", fast_flags=fast_flags)
+    if backend == "native" or (backend == "auto" and native.available()):
+        return NativeDecodePool(cfg, num_workers)
+    return DecodePool(cfg, num_workers=num_workers, use_processes=backend != "thread")

@@ -1,6 +1,7 @@
-"""Dataset-free video fixtures: deterministic synthetic mp4s written with
-OpenCV, for tests and the bench. Counterpart of ``write_video`` in
-``asltpu/data/synthetic.py``: the same frames for the same seed.
+"""Dataset-free fixtures for tests and the bench: deterministic synthetic
+mp4s written with OpenCV, and landmark sequences. Counterpart of
+``write_video`` and ``synthetic_landmarks`` in ``asltpu/data/synthetic.py``:
+the same values for the same seed.
 
 OpenCV is imported when a video is written, not when this module is, and
 nothing here imports torch: the bench's writer processes import only this.
@@ -46,3 +47,18 @@ def write_video(
     finally:
         writer.release()
     return frames
+
+
+def synthetic_landmarks(batch: int, num_frames: int, seed: int = 0) -> np.ndarray:
+    """Plausible 543-landmark sequences [batch, T, 543, 3] float32: smooth
+    trajectories in [0,1]², with the left-hand block zeroed in about a
+    fifth of the frames (the missing-detection convention)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.2, 0.8, size=(batch, 1, 543, 3)).astype(np.float32)
+    drift = rng.normal(0, 0.003, size=(batch, num_frames, 543, 3)).astype(
+        np.float32
+    ).cumsum(axis=1)
+    lm = np.clip(base + drift, 0.0, 1.0)
+    mask = rng.random((batch, num_frames)) < 0.2
+    lm[mask, 501:522, :] = 0.0
+    return lm

@@ -45,8 +45,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     fan-out and BN as identity (torchvision's MobileNetV2 and ResNet),
     linears as ``nn.Linear``'s default, LayerNorm as identity, attention's
     packed q/k/v projection as ``nn.MultiheadAttention``'s (Xavier-uniform,
-    zero bias), GRUs U(-1/√H, 1/√H), the transformer's CLS token and
-    positions truncated-normal (std 0.02)."""
+    zero bias), GRUs and LSTMs U(-1/√H, 1/√H), the transformer's CLS token
+    and positions truncated-normal (std 0.02)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Conv2d):
@@ -63,6 +63,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.in_proj_bias.zero_()
             elif isinstance(m, (GRU, TransformerHead)):
                 m.reset_parameters(generator)
+            elif isinstance(m, nn.LSTM):
+                k = 1.0 / math.sqrt(m.hidden_size)
+                for p in m.parameters():
+                    p.uniform_(-k, k, generator=generator)
 
 
 def cast_for_compute(module: nn.Module, dtype: torch.dtype,

@@ -7,27 +7,27 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-``<hash>`` covers the source and the flags, so a library is built at first
-use and again only when its source changes. The compiler's output (with
-ptxas's register and spill counts) is kept beside it as ``.log``. Nothing
-here runs at import time: the CPU tests import the kernel wrappers on hosts
-that have no nvcc.
+through the build cache of :mod:`asltpu_torch._buildcache`: ``<hash>``
+covers the source and the flags, so a library is built at first use and
+again only when its source changes. The compiler's output (with ptxas's
+register and spill counts) is kept beside it as ``.log``. Nothing here runs
+at import time: the CPU tests import the kernel wrappers on hosts that have
+no nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+from asltpu_torch import _buildcache
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = _buildcache.BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,35 +57,19 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return _buildcache.output_path(name, [CSRC / f"{name}.cu"], NVCC_FLAGS)
 
 
 def build(names: List[str]) -> Dict[str, Path]:
     """Compile the named sources that are not built yet, one nvcc process
     each, all started together; raise if any fails."""
-    BUILD_DIR.mkdir(exist_ok=True)
     out = {n: library_path(n) for n in names}
-    todo = [n for n in names if not out[n].exists()]
-    compiler = nvcc() if todo else ""
-    procs = []
-    for n in todo:
-        tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
-        log = open(out[n].with_suffix(".log"), "w")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs.append((n, tmp, log, subprocess.Popen(
-            cmd, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for n, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out[n])
-        else:
-            failed.append(f"{n} (rc {rc}, see {out[n].with_suffix('.log')})")
-    if failed:
-        raise RuntimeError("nvcc failed: " + ", ".join(failed))
+    if not all(p.exists() for p in out.values()):
+        compiler = nvcc()
+        _buildcache.build(
+            [(out[n], lambda tmp, n=n: [compiler, *NVCC_FLAGS, "-o", str(tmp),
+                                        str(CSRC / f"{n}.cu")]) for n in names],
+            "nvcc")
     return out
 
 

@@ -1,13 +1,17 @@
-"""GRU layer with the input projection hoisted out of the time loop.
+"""GRU and LSTM layers with the input projection hoisted out of the time
+loop.
 
-Counterpart of ``asltpu/ops/recurrent.py::gru_layer``. The JAX package
-leaves this to XLA (a ``lax.scan``); here it is plain PyTorch: one
-``[B·T, F] × [F, 3H]`` matmul for the input projections of all steps, then
-a Python loop over T whose body is ``h @ W_hh`` and the gate math, in fp32.
+Counterpart of ``asltpu/ops/recurrent.py`` (``gru_layer``, ``lstm_layer``,
+``bilstm``). The JAX package leaves these to XLA (a ``lax.scan``); here
+they are plain PyTorch: one ``[B·T, F] × [F, G·H]`` matmul for the input
+projections of all steps, then a Python loop over T whose body is
+``h @ W_hh`` and the gate math, in fp32.
 
-Torch semantics throughout: gate order r, z, n; the reset gate applies
+Torch semantics throughout. GRU: gate order r, z, n; the reset gate applies
 after the hidden matmul; separate input and hidden biases. So :class:`GRU`
 computes what ``torch.nn.GRU`` computes and carries its parameter names.
+LSTM: gate order i, f, g, o and one bias ``b`` (``torch.nn.LSTM``'s
+``bias_ih + bias_hh``), as the JAX package keeps it.
 """
 
 from __future__ import annotations
@@ -16,6 +20,48 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+
+
+def lstm_layer(
+    x: torch.Tensor,  # [B, T, F]
+    w_ih: torch.Tensor,  # [4H, F]
+    w_hh: torch.Tensor,  # [4H, H]
+    b: torch.Tensor,  # [4H]
+    reverse: bool = False,
+    init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One unidirectional LSTM layer, fp32. Returns ([B, T, H] outputs,
+    (h_T, c_T)); ``reverse`` runs from the last step to the first and
+    returns the outputs in input order."""
+    bsz, t, f = x.shape
+    hidden = w_hh.shape[1]
+    x32 = x.to(torch.float32)
+    x_proj = torch.addmm(b, x32.reshape(bsz * t, f), w_ih.t()).reshape(bsz, t, -1)
+    if init is None:
+        h = c = x32.new_zeros(bsz, hidden)
+    else:
+        h, c = init
+    outs: List[torch.Tensor] = []
+    for s in (range(t - 1, -1, -1) if reverse else range(t)):
+        gates = x_proj[:, s] + h @ w_hh.t()
+        i, fg, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(fg) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    if reverse:
+        outs.reverse()
+    return torch.stack(outs, dim=1), (h, c)
+
+
+LSTMParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (w_ih, w_hh, b)
+
+
+def bilstm(x: torch.Tensor, fwd: LSTMParams, bwd: LSTMParams) -> torch.Tensor:
+    """Bidirectional LSTM layer → [B, T, 2H]: the forward outputs, then the
+    backward ones (``torch.nn.LSTM(bidirectional=True)``'s layout)."""
+    out_f, _ = lstm_layer(x, *fwd)
+    out_b, _ = lstm_layer(x, *bwd, reverse=True)
+    return torch.cat([out_f, out_b], dim=-1)
 
 
 def gru_layer(

@@ -25,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from asltpu_torch.data.staging import resize_plan
+
 
 @functools.lru_cache(maxsize=64)
 def _sampling_taps(
@@ -62,8 +64,6 @@ def _crop_window(
     in_hw: Tuple[int, int], resize_short: int, crop: int
 ) -> Tuple[int, int, int, int]:
     """(rh, rw, y0, x0): resized size and crop offset, checked to fit."""
-    from asltpu_torch.ops.preprocess import resize_plan
-
     rh, rw = resize_plan(in_hw, resize_short)
     if rh < crop or rw < crop:
         raise ValueError(

@@ -59,7 +59,27 @@ phase printing one JSON line:
    timed by CUDA events, and their peak memory.
 8. host — ``load_clip`` → ``predict`` and ``stream_predict`` on synthetic
    videos, when OpenCV is installed.
-9. bench — ``asltpu_torch.benchmark`` in this process over its three
+9. decode_backends — the native decode libraries (``asltpu_torch.native``,
+   host C++ built with g++) on 4 fresh synthetic mp4s and one clip record
+   with a segment and a signer box, on both wire lanes: where g++ and the
+   OpenCV 4 headers are present the OpenCV library must build and give
+   the bytes of the cv2 path; where the libav headers are present the av
+   library must stay within a mean absolute difference of 3.0 of it (6.0
+   for the record with a box, 8.0 with ``FAST_ALL``). A library whose toolchain is missing prints
+   ``"ran": false`` with the path looked for; one that fails to build with
+   its toolchain present fails the run. Then ``stream_predict`` with
+   ``decode_backend="auto"`` over the same items names the backend it
+   chose, and its top-1 must equal ``predict``'s on the same clips staged
+   by the cv2 path.
+10. pose_lane — ``load_model("pose_bilstm")`` at full width (543 × 3
+   landmarks, 32 frames, hidden 256, 2 layers, 100 classes) on the card,
+   ``predict`` on a seeded batch of 64 with cuDNN's TF32 allowed (PyTorch's
+   default): fp32 logits within 1e-5 of the same weights on the CPU, and
+   the control, TF32 on inside the LSTM, must leave that bound; the
+   pose-only ``stream_predict`` over a
+   ``LandmarkStore.for_path`` gives ``predict``'s logits; device-only
+   clips/s by CUDA events. The pose path runs no preprocess kernel.
+11. bench — ``asltpu_torch.benchmark`` in this process over its four
    (family, lane) cells with a short stream; its result line.
 
 The kernels' launch counts are read per path: each lane (and the fused
@@ -148,6 +168,15 @@ FAMILIES = {
         "d_model": 512, "num_heads": 8, "num_tx_layers": 4, "mlp_ratio": 4,
         "num_classes": 300, "num_frames": 32}},
 }
+# The av decoder against the cv2 path, as the JAX package bounds it
+# (tests/unit/test_decode_av.py): mean absolute difference of the uint8
+# bytes, exact av (a clip; a record with a signer box, whose crop may land
+# one source pixel off cv2's) and with FAST_ALL.
+AV_MAD, AV_BBOX_MAD, AV_FAST_MAD = 3.0, 6.0, 8.0
+POSE_BATCH = 64  # the JAX bench's pose batch (asltpu/benchmark.py:1299)
+# fp32 logits, card vs CPU, full width at batch 64: 1.04e-7 with the LSTM
+# in fp32, 1.19e-4 with TF32 on inside it (NVIDIA H100 80GB HBM3, 700 W).
+POSE_CPU_ATOL = 1e-5
 # The bench phase: a short stream and small corpora, so the whole script
 # stays within a few minutes.
 BENCH_ARGS = ["--stream-batches", "4", "--windows", "2", "--corpus-clips", "8",
@@ -773,13 +802,221 @@ def phase_host():
           "max_logit_err_stream_vs_predict": err})
 
 
+def _mad(a, b) -> float:
+    return float(np.mean(np.abs(a.astype(np.int32) - b.astype(np.int32))))
+
+
+def _system_opencv_version(include_dir: str):
+    """CV_VERSION of the OpenCV C++ headers the native library builds with."""
+    import re
+
+    try:
+        with open(os.path.join(include_dir, "opencv2", "core", "version.hpp")) as f:
+            text = f.read()
+    except OSError:
+        return None
+    parts = [re.search(rf"#define CV_VERSION_{k}\s+(\d+)", text) for k in
+             ("MAJOR", "MINOR", "REVISION")]
+    return ".".join(m.group(1) for m in parts if m)
+
+
+def phase_decode_backends():
+    """The native decode libraries against the cv2 path, then
+    ``stream_predict(decode_backend="auto")`` against ``predict``."""
+    try:
+        import cv2
+    except ImportError as e:
+        emit({"phase": "decode_backends", "ran": False,
+              "why": f"OpenCV (cv2) is not installed on this machine ({e})"})
+        return
+    from asltpu_torch import api, native
+    from asltpu_torch.config import PreprocessConfig
+    from asltpu_torch.data import decode
+    from asltpu_torch.data.synthetic import write_video
+    from asltpu_torch.data.wlasl import ClipRecord
+
+    ffmpeg = [ln.strip() for ln in cv2.getBuildInformation().splitlines()
+              if "FFMPEG" in ln or "avcodec" in ln]
+    lanes = {"rgb": PreprocessConfig(), "yuv420": PreprocessConfig(**YUV_LANE)}
+    libs = {}
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i, size in enumerate([(240, 320), (320, 240), (256, 256), (480, 640)]):
+            paths.append(os.path.join(d, f"fresh{i}.mp4"))
+            write_video(paths[-1], num_frames=40, size=size, seed=100 + i)
+        rec = ClipRecord("seg", "gloss", 0, "test", paths[3], frame_start=6,
+                         frame_end=33, bbox=(60, 30, 560, 470))
+        items = paths + [rec]
+
+        def cv2_path(pp):
+            return np.stack([decode.decode_sampled_frames(
+                getattr(it, "path", it), pp.num_frames, pp.staging_size,
+                pp.host_resize_short, frame_start=getattr(it, "frame_start", 1),
+                frame_end=getattr(it, "frame_end", -1), bbox=getattr(it, "bbox", None),
+                staging_format=pp.staging_format) for it in items])
+
+        for lib in ("opencv", "av"):
+            spec = native.SPECS[lib]
+            missing = native.toolchain_missing(lib)
+            if missing:
+                libs[lib] = {"ran": False, "why": missing}
+                continue
+            t0 = time.perf_counter()
+            path = native.build(lib)  # raises, naming the log, if g++ fails
+            build_s = time.perf_counter() - t0
+            reason = (native.unavailable_reason() if lib == "opencv"
+                      else native.av_unavailable_reason())
+            if reason:
+                raise RuntimeError(f"native {lib} does not load: {reason}")
+            row = {"ran": True, "library": str(path.relative_to(path.parents[2])),
+                   "include_dir": native._include_dir(spec), "build_s": build_s,
+                   "lanes": {}}
+            if lib == "opencv":
+                row["system_opencv"] = _system_opencv_version(row["include_dir"])
+            for lane, pp in lanes.items():
+                want = cv2_path(pp)
+                yuv = pp.staging_format == "yuv420"
+                if lib == "opencv":
+                    got, ok = native.decode_batch_native(
+                        items, pp.num_frames, pp.staging_size, pp.host_resize_short,
+                        yuv420=yuv)
+                    differ = int((got != want).sum())
+                    row["lanes"][lane] = {"shape": list(got.shape), "ok": ok.tolist(),
+                                          "bytes_differing": differ}
+                    if ok.any() or differ:
+                        raise AssertionError(
+                            f"native OpenCV decode differs from the cv2 path ({lane}): "
+                            f"{row}; python cv2 {cv2.__version__} {ffmpeg}")
+                else:
+                    got, ok = native.decode_batch_av(
+                        items, pp.num_frames, pp.staging_size, pp.host_resize_short,
+                        yuv420=yuv)
+                    fast, fok = native.decode_batch_av(
+                        items, pp.num_frames, pp.staging_size, pp.host_resize_short,
+                        yuv420=yuv, fast_flags=native.FAST_ALL)
+                    mads = [_mad(got[i], want[i]) for i in range(len(items))]
+                    fast_mads = [_mad(fast[i], want[i]) for i in range(len(items))]
+                    bounds = [AV_BBOX_MAD if getattr(it, "bbox", None) else AV_MAD
+                              for it in items]
+                    row["lanes"][lane] = {"ok": ok.tolist(), "mad": mads,
+                                          "mad_bounds": bounds, "mad_fast_all": fast_mads,
+                                          "fast_bound": AV_FAST_MAD}
+                    if (ok.any() or fok.any() or any(m > b for m, b in zip(mads, bounds))
+                            or max(fast_mads) > AV_FAST_MAD):
+                        raise AssertionError(f"av decode off the cv2 path ({lane}): {row}")
+            libs[lib] = row
+
+        model = api.load_model("mobilenet_gru", seed=SEED)
+        pp = model.cfg.preprocess
+        pool = decode.make_decode_pool(pp)
+        chosen = pool.backend
+        pool.shutdown()
+        out = list(api.stream_predict(model, items, batch_size=len(items),
+                                      num_decode_workers=4, decode_backend="auto",
+                                      yield_items=True))
+        ids, logits = api.predict(model, cv2_path(pp))
+    got = np.stack([lg for _, _, lg in out])
+    err = float(np.abs(got - logits).max())
+    if [it for it, _, _ in out] != items or not (got.argmax(-1) == ids).all() \
+            or err > LANE_LOGIT_ATOL:
+        raise AssertionError(f"stream_predict(auto, {chosen}) disagrees with predict: "
+                             f"max logit err {err}")
+    emit({"phase": "decode_backends", "ran": True, "python_cv2": cv2.__version__,
+          "python_cv2_video_io": ffmpeg, "items": len(items),
+          "record": {"frame_start": rec.frame_start, "frame_end": rec.frame_end,
+                     "bbox": list(rec.bbox)},
+          "libraries": libs, "auto_backend": chosen,
+          "stream_auto_top1_equal_predict": True,
+          "stream_auto_max_logit_err": err, "atol": LANE_LOGIT_ATOL})
+
+
+def phase_pose_lane():
+    """``pose_bilstm`` at full width on the card: against the CPU, the
+    pose-only stream against ``predict``, device-only clips/s."""
+    from asltpu_torch import api
+    from asltpu_torch.data.landmarks import LandmarkStore
+    from asltpu_torch.data.synthetic import synthetic_landmarks
+    from asltpu_torch.ops import preprocess_kernels as k
+
+    model = api.load_model("pose_bilstm", seed=SEED)
+    cfg = model.cfg
+    assert (cfg.num_landmarks, cfg.landmark_dim, cfg.num_frames, cfg.hidden_size,
+            cfg.num_layers, cfg.num_classes) == (543, 3, 32, 256, 2, 100)
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in model.module.parameters())
+    lm = synthetic_landmarks(POSE_BATCH, cfg.num_frames, seed=SEED + 5)
+    lm[0, 3] = 0.0                 # nothing detected in one frame
+    lm[1, 4, 12] = lm[1, 4, 11]    # no usable pose in another
+    torch.cuda.synchronize()
+    k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+    # PyTorch's default lets cuDNN use TF32 (phase device turned it off for
+    # the other phases): the model keeps its LSTM fp32 itself.
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ids, logits = api.predict(model, lm)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    launches = {"preprocess_rgb": k.preprocess_rgb.launches,
+                "preprocess_yuv420": k.preprocess_yuv420.launches}
+    assert launches == {"preprocess_rgb": 0, "preprocess_yuv420": 0}, launches
+    assert logits.shape == (POSE_BATCH, 100) and np.isfinite(logits).all()
+    # The control: TF32 on inside the LSTM must leave the bound, or the
+    # bound could not tell an LSTM that slipped into TF32.
+    model.module.lstm_tf32 = True
+    try:
+        _, tf32_logits = api.predict(model, lm)
+    finally:
+        model.module.lstm_tf32 = False
+    cpu_ids, cpu_logits = api.predict(api.load_model("pose_bilstm", seed=SEED,
+                                                     device="cpu"), lm)
+    err = float(np.abs(logits - cpu_logits).max())
+    tf32_err = float(np.abs(tf32_logits - cpu_logits).max())
+    spread = float(np.abs(cpu_logits - cpu_logits.mean(0)).max())
+    if err > POSE_CPU_ATOL or not (ids == cpu_ids).all():
+        raise AssertionError(f"pose_bilstm on the card vs the CPU: max logit err {err}")
+    if tf32_err <= POSE_CPU_ATOL:
+        raise AssertionError(f"the pose bound {POSE_CPU_ATOL} does not see a TF32 "
+                             f"LSTM: max logit err {tf32_err} (fp32: {err})")
+    with tempfile.TemporaryDirectory() as d:
+        store = LandmarkStore(d)
+        raw = synthetic_landmarks(POSE_BATCH + 8, 48, seed=SEED + 6)
+        paths = []
+        for i, seq in enumerate(raw):
+            store.put(f"clip{i:03d}", seq)
+            paths.append(f"/videos/clip{i:03d}.mp4")
+        out = list(api.stream_predict(model, paths, batch_size=POSE_BATCH,
+                                      landmarks_for=store.for_path(cfg.num_frames)))
+        staged = np.stack([store.get(f"clip{i:03d}", cfg.num_frames)
+                           for i in range(len(paths))])
+    want = np.concatenate([api.predict(model, staged[i:i + POSE_BATCH])[1]
+                           for i in range(0, len(paths), POSE_BATCH)])
+    got = np.stack([lg for _, _, lg in out])
+    stream_err = float(np.abs(got - want).max())
+    if [p for p, _, _ in out] != paths or stream_err > POSE_CPU_ATOL:
+        raise AssertionError(f"pose stream_predict vs predict: max logit err {stream_err}")
+    x = torch.from_numpy(lm).to(model.device)
+    fn = model.predict_fn()
+    ms = time_ms(lambda: fn(x), PREDICT_REPS)
+    emit({"phase": "pose_lane", "family": "pose_bilstm", "input": list(lm.shape),
+          "compute_dtype": cfg.compute_dtype, "launches": launches,
+          "max_logit_err_vs_cpu": err, "atol": POSE_CPU_ATOL,
+          "tf32_lstm_control_max_logit_err_vs_cpu": tf32_err,
+          "logit_spread": spread, "distinct_top1": len(set(cpu_ids.tolist())),
+          "stream_clips": len(out), "stream_max_logit_err_vs_predict": stream_err,
+          "device_ms_per_batch": ms, "device_clips_per_s": POSE_BATCH / ms * 1e3})
+    del model, x
+    torch.cuda.empty_cache()
+
+
 def phase_bench():
-    """The port's bench in this process, over its three cells, with a short
-    stream; every cell's rgb or yuv420 kernel must have launched."""
+    """The port's bench in this process, over its four cells, with a short
+    stream; every video cell's rgb or yuv420 kernel must have launched."""
     from asltpu_torch import benchmark
 
     result = benchmark.run(BENCH_ARGS)
     for cell in result["cells"]:
+        if cell["device_only"]["kernel"] is None:
+            continue  # pose_bilstm: no preprocess
         if cell["device_only"]["kernel_launches_per_predict"] < 1:
             raise AssertionError(f"bench {cell['family']}/{cell['lane']}: "
                                  "the preprocess kernel did not launch")
@@ -862,6 +1099,8 @@ def _run() -> int:
     mbconv = phase_mbconv()
     fused = phase_fused_backbone()
     phase_host()
+    phase_decode_backends()
+    phase_pose_lane()
     phase_bench()
 
     kernels = []

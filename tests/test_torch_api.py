@@ -132,11 +132,12 @@ def test_load_clip_predict_and_stream_on_cpu(videos, lane):
 
 
 def test_stream_predict_default_pool_is_processes(videos):
-    """decode_backend="auto" decodes in spawned worker processes."""
+    """decode_backend="process" decodes in spawned worker processes (the
+    default "auto" picks the native library where it is built, else them)."""
     tm = tapi.load_model("mobilenet_gru", device="cpu", preprocess=dict(LANES["rgb"]),
                          **SMALL)
     out = list(tapi.stream_predict(tm, videos[:2], batch_size=2,
-                                   num_decode_workers=1))
+                                   num_decode_workers=1, decode_backend="process"))
     assert [p for p, _, _ in out] == videos[:2]
     for p, _, logits in out:
         _, want = tapi.predict(tm, tapi.load_clip(p, tm.cfg.preprocess))

@@ -7,7 +7,7 @@ import json
 import pytest
 import torch
 
-from asltpu_torch import benchmark
+from asltpu_torch import benchmark, native
 
 TINY = ["--device", "cpu", "--batch", "2", "--frames", "2", "--staging", "40",
         "--crop", "32", "--clip-size", "48", "--clip-frames", "8",
@@ -42,14 +42,54 @@ def test_bench_on_cpu_both_families(capsys):
         assert cell["gflops_per_clip"] > 0
         assert STREAM_KEYS <= set(cell["stream"]) and cell["stream"]["clips"] == 8
         assert cell["stream"]["top1_equal_predict"] is True
-        assert cell["decode"]["ran"] is True
-        assert set(cell["decode"]["clips_per_s_by_workers"]) == {"1"}
+        decode = cell["decode"]
+        assert decode["ran"] is True
+        assert set(decode["process"]["clips_per_s_by_workers"]) == {"1"}
+        for row in ("native", "av", "av_fast"):  # the toolchains are here
+            assert decode[row]["ran"] is True and decode[row]["clips_per_s"] > 0
+        assert decode["av_fast"]["fast_flags"] == native.FAST_ALL
         mp4 = cell["mp4_stream"]
-        assert mp4["ran"] is True and mp4["top1_equal_predict"] is True
-        assert mp4["clips"] == 4 and mp4["fill_clips"] == 2
+        assert mp4["ran"] is True and mp4["workers"] == 1
+        for backend, chosen in (("auto", "native"), ("process", "process")):
+            assert mp4[backend]["backend"] == chosen
+            assert mp4[backend]["top1_equal_predict"] is True
+            assert mp4[backend]["clips"] == 4 and mp4[backend]["fill_clips"] == 2
     # ResNet-18 does more work per clip than MobileNetV2 at the same shapes.
     assert (cells[("resnet_transformer", "rgb")]["gflops_per_clip"]
             > cells[("mobilenet_gru", "yuv420")]["gflops_per_clip"])
+
+
+def test_bench_pose_cell_on_cpu(capsys):
+    """The pose cell: no preprocess kernel, device-only and host-staged
+    stream clips/s, its FLOPs counted from the shapes."""
+    assert benchmark.main(["--device", "cpu", "--batch", "4", "--frames", "3",
+                           "--stream-batches", "3", "--windows", "2",
+                           "--cells", "pose_bilstm:landmarks"]) == 0
+    (cell,) = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["cells"]
+    assert set(cell) == {"family", "lane", "batch", "input", "compute_dtype", "device",
+                         "device_only", "gflops_per_clip", "stream", "seconds"}
+    assert cell["input"] == [4, 3, 543, 3] and cell["compute_dtype"] == "float32"
+    only = cell["device_only"]
+    assert only["kernel"] is None and only["kernel_launches_per_predict"] == 0
+    assert only["clips_per_s"] > 0 and only["timer"] == "host clock (cpu)"
+    assert STREAM_KEYS <= set(cell["stream"]) and cell["stream"]["clips"] == 12
+    assert cell["stream"]["top1_equal_predict"] is True
+    # 2 layers × 2 directions × 3 steps × 4·256·(F + 256), F = 1629 then 512,
+    # plus the 512 × 100 classifier, two operations per multiply-add.
+    macs = 2 * 3 * 1024 * ((1629 + 256) + (512 + 256)) + 512 * 100
+    assert cell["gflops_per_clip"] == pytest.approx(2 * macs / 1e9)
+
+
+def test_bench_native_row_without_its_toolchain(monkeypatch, capsys):
+    """A native library whose toolchain is missing is reported as not run,
+    naming what is missing; the other backends still run."""
+    monkeypatch.setattr(native, "toolchain_missing",
+                        lambda lib: "header not found: /x.h" if lib == "av" else None)
+    line = benchmark.run(TINY + ["--cells", "mobilenet_gru:rgb", "--mp4-batches", "2"])
+    (cell,) = line["cells"]
+    assert cell["decode"]["av"] == cell["decode"]["av_fast"] == {
+        "ran": False, "why": "header not found: /x.h"}
+    assert cell["decode"]["native"]["ran"] is True
 
 
 def test_bench_without_opencv_reports_the_mp4_parts_not_run(monkeypatch):

@@ -309,3 +309,29 @@ def test_fused_backbone_matches_module_on_the_card(card):
             assert peak > 0.1, i
             torch.testing.assert_close(y.float(), want, rtol=0,
                                        atol=FEATURE_RTOL * peak, msg=f"layer {i}")
+
+
+def test_pose_bilstm_on_the_card_is_fp32_with_tf32_allowed():
+    """pose_bilstm keeps cuDNN's LSTM in fp32 itself: with PyTorch's default
+    (cuDNN may use TF32) its logits on the card are within 1e-5 of the
+    CPU's. With TF32 on inside the LSTM they are not: the bound sees it."""
+    from asltpu_torch.data.synthetic import synthetic_landmarks
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        kw = dict(seed=5, hidden_size=64, num_frames=8, num_classes=9)
+        lm = synthetic_landmarks(16, 8, seed=6)
+        model = api.load_model("pose_bilstm", **kw)
+        ids, logits = api.predict(model, lm)
+        model.module.lstm_tf32 = True
+        _, tf32_logits = api.predict(model, lm)
+        want_ids, want = api.predict(api.load_model("pose_bilstm", device="cpu", **kw), lm)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_allclose(logits, want, atol=1e-5)
+    errs = (float(np.abs(logits - want).max()), float(np.abs(tf32_logits - want).max()))
+    assert errs[1] > 1e-5, f"fp32 and TF32 LSTM max logit errors vs the CPU: {errs}"

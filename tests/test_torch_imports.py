@@ -36,7 +36,25 @@ def _run(code, env=None):
 def test_package_imports_no_jax_and_no_asltpu():
     proc = _run(_WALK)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 25
+
+
+# What a spawned decode worker imports, and the other host-side modules.
+TORCH_FREE = ("asltpu_torch._buildcache", "asltpu_torch.config", "asltpu_torch.native",
+              "asltpu_torch.data.decode",
+              "asltpu_torch.data.staging", "asltpu_torch.data.pad",
+              "asltpu_torch.data.wlasl", "asltpu_torch.data.landmarks",
+              "asltpu_torch.data.synthetic")
+
+
+def test_host_modules_import_no_torch():
+    proc = _run(
+        "import importlib, sys\n"
+        f"for m in {TORCH_FREE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"
+        "assert not bad, bad[:5]\n")
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_kernel_module_imports_without_nvcc():
@@ -108,15 +126,17 @@ def test_cpu_fused_backbone_leaves_mbconv_counter_at_zero():
 
 
 def test_unported_names_and_backends_say_so():
-    from asltpu_torch import api
+    from asltpu_torch import api, native
     from asltpu_torch.config import PreprocessConfig
     from asltpu_torch.data.decode import make_decode_pool
 
-    for name in ("pose_bilstm", "i3d", "two_stream"):
+    for name in ("i3d", "two_stream"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.build_module(api.get_config(name))
-    for backend in ("native", "av"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_decode_pool(PreprocessConfig(), backend=backend)
+    assert api.build_module(api.get_config("pose_bilstm")).fc.out_features == 100
     with pytest.raises(ValueError, match="unknown decode backend"):
         make_decode_pool(PreprocessConfig(), backend="gpu")
+    for backend in ("auto", "native", "process", "thread"):
+        with pytest.raises(ValueError, match="fast_flags"):
+            make_decode_pool(PreprocessConfig(), backend=backend,
+                             fast_flags=native.FAST_ALL)
