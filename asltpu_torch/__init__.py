@@ -9,9 +9,11 @@ path:
   - :mod:`asltpu_torch.config`  — the five configs, field for field.
   - :mod:`asltpu_torch.models`  — MobileNetV2 + GRU head (``mobilenet_gru``),
     ResNet-18 + transformer head (``resnet_transformer``), the landmark
-    BiLSTM (``pose_bilstm``).
+    BiLSTM (``pose_bilstm``), I3D (``i3d``), the RGB + landmark
+    cross-attention fusion (``two_stream``).
   - :mod:`asltpu_torch.ops`     — preprocess (plain PyTorch and the
-    hand-written CUDA kernels of ``csrc/``), the GRU and LSTM layers.
+    hand-written CUDA kernels of ``csrc/``), the GRU and LSTM layers, I3D's
+    stem conv in its plain and space-to-depth forms.
   - :mod:`asltpu_torch.data`    — host decode, WLASL clip records,
     landmarks, padding, prefetch to the card, synthetic fixtures.
   - :mod:`asltpu_torch.native`  — the native (C++, g++) batch decoders,

@@ -1,12 +1,16 @@
 """Public API: ``load_model``, ``load_clip``, ``predict`` and
-``stream_predict``. Counterpart of ``asltpu/api.py`` for the configs ported
-so far: ``pose_bilstm``, ``mobilenet_gru`` and ``resnet_transformer``.
+``stream_predict``. Counterpart of ``asltpu/api.py`` for the five configs:
+``pose_bilstm``, ``mobilenet_gru``, ``resnet_transformer``, ``i3d`` and
+``two_stream``.
 
 For the RGB models everything after host decode runs on the device:
-preprocess (a hand-written CUDA kernel on the card), the per-frame backbone
-over the B·T frames (MobileNetV2 or ResNet-18), the temporal head (GRU or
-transformer). ``pose_bilstm`` takes landmarks [T, 543, 3] instead of
-frames; it normalises them and runs its BiLSTM on the device.
+preprocess (a hand-written CUDA kernel on the card), then the per-frame
+backbone over the B·T frames (MobileNetV2 or ResNet-18) and the temporal
+head (GRU or transformer), or I3D's 3D network over the whole clip.
+``pose_bilstm`` takes landmarks [T, 543, 3] instead of frames; it
+normalises them and runs its BiLSTM on the device. ``two_stream`` takes
+both: frames through MobileNetV2, landmarks of the same T, and
+cross-attention between the two.
 The entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly running on the CPU.
 
@@ -27,6 +31,7 @@ from torch import nn
 
 from asltpu_torch import native
 from asltpu_torch.config import (
+    I3DConfig,
     MobileNetV2GRUConfig,
     ModelConfig,
     PoseBiLSTMConfig,
@@ -40,6 +45,8 @@ from asltpu_torch.data.pad import pad_to_batch
 from asltpu_torch.data.prefetch import Prefetcher, resolve_device
 from asltpu_torch.models.bilstm import PoseBiLSTM
 from asltpu_torch.models.common import cast_for_compute, init_weights
+from asltpu_torch.models.fusion import TwoStreamFusion
+from asltpu_torch.models.i3d import I3D
 from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
 from asltpu_torch.ops.preprocess import preprocess_clip
 
@@ -84,22 +91,50 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             num_landmarks=cfg.num_landmarks,
             landmark_dim=cfg.landmark_dim,
         )
-    raise NotImplementedError(
-        f"{cfg.name} is not ported yet (ROADMAP queue 1, items 9, 10)"
-    )
+    if isinstance(cfg, I3DConfig):
+        return I3D(num_classes=cfg.num_classes, dropout=cfg.dropout)
+    if isinstance(cfg, TwoStreamFusionConfig):
+        return TwoStreamFusion(
+            num_classes=cfg.num_classes,
+            num_frames=cfg.num_frames,
+            d_model=cfg.d_model,
+            num_heads=cfg.num_heads,
+            num_fusion_layers=cfg.num_fusion_layers,
+            dropout=cfg.dropout,
+            width_mult=cfg.width_mult,
+            num_landmarks=cfg.num_landmarks,
+            landmark_dim=cfg.landmark_dim,
+        )
+    raise ValueError(f"no model for config {type(cfg).__name__}")
 
 
 def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
     """The parts of a built model that run fp32 under any compute dtype,
     besides its norms: the GRU head of ``mobilenet_gru`` (the recurrence
-    amplifies low-precision error) and the transformer head's classifier,
-    which reads the CLS output in fp32; all of ``pose_bilstm``, as the JAX
-    package computes it."""
+    amplifies low-precision error); the classifiers that read a pooled
+    output in fp32 (the transformer head's and the fusion model's ``fc``,
+    I3D's ``logits``); all of ``pose_bilstm``, as the JAX package computes
+    it."""
     if isinstance(module, PoseBiLSTM):
         return (module,)
     if isinstance(module, MobileNetV2GRU):
         return (module.gru, module.fc)
+    if isinstance(module, I3D):
+        return (module.logits,)
+    if isinstance(module, TwoStreamFusion):
+        return (module.fc,)
     return (module.head.fc,)
+
+
+def to_channels_last(module: nn.Module) -> nn.Module:
+    """Lay every 4D parameter out ``channels_last`` and every 5D one
+    ``channels_last_3d``, in place (``Module.to(memory_format=...)`` takes
+    one format and raises on a rank it does not fit)."""
+    formats = {4: torch.channels_last, 5: torch.channels_last_3d}
+    for p in module.parameters():
+        if p.dim() in formats:
+            p.data = p.data.contiguous(memory_format=formats[p.dim()])
+    return module
 
 
 @dataclasses.dataclass
@@ -118,11 +153,12 @@ class Model:
     def takes_landmarks(self) -> bool:
         return isinstance(self.cfg, (PoseBiLSTMConfig, TwoStreamFusionConfig))
 
-    def predict_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        """Input on ``device`` → logits [B, num_classes] fp32. The input is
+    def predict_fn(self) -> Callable[..., torch.Tensor]:
+        """Inputs on ``device`` → logits [B, num_classes] fp32. The input is
         staged uint8 frames ([B, T, Hs, Ws, 3] or packed I420
-        [B, T, Hs·3/2, Ws]), or for ``pose_bilstm`` landmarks
-        [B, T, 543, 3]."""
+        [B, T, Hs·3/2, Ws]); for ``pose_bilstm`` landmarks [B, T, 543, 3];
+        for ``two_stream`` frames and landmarks, ``fn(frames_u8,
+        landmarks)``."""
         module = self.module
         if not self.takes_rgb:
             def pose_fn(landmarks: torch.Tensor) -> torch.Tensor:
@@ -132,9 +168,9 @@ class Model:
             return pose_fn
         pp: PreprocessConfig = self.cfg.preprocess  # type: ignore[attr-defined]
 
-        def fn(frames_u8: torch.Tensor) -> torch.Tensor:
+        def fn(frames_u8: torch.Tensor, *landmarks: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():
-                return module(preprocess_clip(frames_u8, pp))
+                return module(preprocess_clip(frames_u8, pp), *landmarks)
 
         return fn
 
@@ -154,7 +190,8 @@ def load_model(
     (:func:`asltpu_torch.models.common.cast_for_compute`); every BatchNorm
     and LayerNorm keeps fp32 parameters and statistics, and so do the parts
     :func:`fp32_modules` names (all of ``pose_bilstm``). The module is laid
-    out channels_last. ``device`` defaults to the card.
+    out channels_last (3D convs channels_last_3d). ``device`` defaults to
+    the card.
     """
     dev = resolve_device(device)
     cfg = get_config(name, **overrides)
@@ -170,7 +207,7 @@ def load_model(
 
         ckpt.load_torch_checkpoint(module, checkpoint)
     cast_for_compute(module, cfg.compute_torch_dtype, fp32_modules(module))
-    module.to(device=dev, memory_format=torch.channels_last).eval()
+    to_channels_last(module.to(device=dev)).eval()
     return Model(cfg=cfg, module=module, device=dev)
 
 
@@ -188,8 +225,11 @@ def predict(
 ) -> Tuple[Any, np.ndarray]:
     """Staged frames [T, ...] or [B, T, ...] → (gloss ids/names, logits).
     For ``pose_bilstm`` ``clip`` is landmarks [T, 543, 3] or
-    [B, T, 543, 3]. ``landmarks`` is for the fusion model, which the port
-    does not serve yet (ROADMAP queue 1, item 9)."""
+    [B, T, 543, 3]. ``two_stream`` also needs ``landmarks`` of the clip's
+    T ([T, 543, 3] or [B, T, 543, 3], batched as ``clip`` is)."""
+    fusion = isinstance(model.cfg, TwoStreamFusionConfig)
+    if fusion and landmarks is None:
+        raise ValueError("two_stream model requires landmarks")
     if model.takes_rgb:
         pp: PreprocessConfig = model.cfg.preprocess  # type: ignore[attr-defined]
         # Per-clip staged rank: T + frame dims (3 for RGB HWC, 2 for packed
@@ -198,10 +238,10 @@ def predict(
     else:
         add_batch = clip.ndim != 4
         clip = clip.astype(np.float32, copy=False)
-    if add_batch:
-        clip = clip[None]
-    x = torch.from_numpy(np.ascontiguousarray(clip)).to(model.device)
-    logits = model.predict_fn()(x).cpu().numpy()
+    inputs = [clip] + ([np.asarray(landmarks, np.float32)] if fusion else [])
+    xs = [torch.from_numpy(np.ascontiguousarray(a[None] if add_batch else a)).to(model.device)
+          for a in inputs]
+    logits = model.predict_fn()(*xs).cpu().numpy()
     ids = logits.argmax(axis=-1)
     glosses: Any = ids
     if gloss_names is not None:
@@ -233,9 +273,11 @@ def stream_predict(
     ``yield_items=True`` (two records of one video stay apart).
 
     ``landmarks_for``: callable path → landmarks [T, 543, 3], required by
-    a landmark model (``pose_bilstm``); one marked ``takes_record = True``
-    receives the item instead of its path. The pose model decodes no video:
-    its batches are the landmarks alone. ``decode_fast=True`` (with
+    the landmark models (``pose_bilstm``, ``two_stream``); one marked
+    ``takes_record = True`` receives the item instead of its path. The pose
+    model decodes no video: its batches are the landmarks alone. The fusion
+    model loads the landmarks of each decoded clip; under ``skip_errors`` a
+    clip whose landmarks do not load is dropped from its batch. ``decode_fast=True`` (with
     ``decode_backend="av"``) turns on the av decoder's codec-level fast
     modes (``asltpu_torch.native.FAST_ALL``): pixels differ slightly from
     the exact decode. ``skip_errors=True`` drops clips that do not decode or
@@ -250,18 +292,18 @@ def stream_predict(
             "landmarks_for=<callable path -> [T,543,3]>"
         )
     fn = model.predict_fn()
+    load_lm = _landmark_loader(items, paths, landmarks_for, skip_errors)
 
     def results(batches):
         with Prefetcher(batches, depth=prefetch_depth, device=model.device) as pf:
-            for x, kept in pf:
-                logits = fn(x).cpu().numpy()[: len(kept)]
+            for *xs, kept in pf:
+                logits = fn(*xs).cpu().numpy()[: len(kept)]
                 ids = logits.argmax(axis=-1)
                 for j, k in enumerate(kept):
                     yield out_of[k], gloss_label(ids[j], gloss_names), logits[j]
 
     if not model.takes_rgb:
-        yield from results(_landmark_batches(items, paths, batch_size,
-                                             landmarks_for, skip_errors))
+        yield from results(_landmark_batches(len(items), batch_size, load_lm))
         return
 
     pp: PreprocessConfig = model.cfg.preprocess  # type: ignore[attr-defined]
@@ -272,30 +314,58 @@ def stream_predict(
         )
     pool = make_decode_pool(pp, num_workers=num_decode_workers, backend=decode_backend,
                             fast_flags=native.FAST_ALL if decode_fast else 0)
+    batches = pool.map_batches(items, batch_size, "skip" if skip_errors else "raise")
+    if model.takes_landmarks:
+        batches = _with_landmarks(batches, load_lm)
     try:
-        yield from results(pool.map_batches(items, batch_size,
-                                            "skip" if skip_errors else "raise"))
+        yield from results(batches)
     finally:
         pool.shutdown()
 
 
-def _landmark_batches(items, paths, batch_size, landmarks_for, skip_errors):
-    """(landmarks [B, T, 543, 3] float32, kept indices) per batch of items;
-    under ``skip_errors`` an item whose landmarks do not load is dropped
-    and a batch with none left is skipped."""
+def _landmark_loader(items, paths, landmarks_for, skip_errors):
+    """index → landmarks [T, 543, 3] float32 from ``landmarks_for`` (the
+    item or its path), or None where they do not load under
+    ``skip_errors``."""
     takes_record = bool(getattr(landmarks_for, "takes_record", False))
-    for i in range(0, len(items), batch_size):
-        loaded, kept = [], []
-        for k in range(i, min(i + batch_size, len(items))):
-            try:
-                lm = landmarks_for(items[k] if takes_record else paths[k])
-            except Exception:
-                if not skip_errors:
-                    raise
-                _log.warning("skipping clip with unloadable landmarks: %s",
-                             paths[k], exc_info=True)
-                continue
-            loaded.append(np.asarray(lm, np.float32))
-            kept.append(k)
-        if kept:
-            yield pad_to_batch(np.stack(loaded), batch_size), kept
+
+    def load(k):
+        try:
+            lm = landmarks_for(items[k] if takes_record else paths[k])
+        except Exception:
+            if not skip_errors:
+                raise
+            _log.warning("skipping clip with unloadable landmarks: %s",
+                         paths[k], exc_info=True)
+            return None
+        return np.asarray(lm, np.float32)
+
+    return load
+
+
+def _landmark_batches(n_items, batch_size, load_lm):
+    """(landmarks [B, T, 543, 3] float32, kept indices) per batch of items;
+    an item whose landmarks do not load is dropped and a batch with none
+    left is skipped."""
+    for i in range(0, n_items, batch_size):
+        loaded = [(k, load_lm(k)) for k in range(i, min(i + batch_size, n_items))]
+        loaded = [(k, lm) for k, lm in loaded if lm is not None]
+        if loaded:
+            yield (pad_to_batch(np.stack([lm for _, lm in loaded]), batch_size),
+                   [k for k, _ in loaded])
+
+
+def _with_landmarks(batches, load_lm):
+    """(frames, kept) decoded batches → (frames, landmarks, kept): the
+    landmarks of each kept clip; a clip whose landmarks do not load is
+    dropped, and frames and landmarks are padded back to the batch."""
+    for frames, kept in batches:
+        loaded = [(row, k, load_lm(k)) for row, k in enumerate(kept)]
+        loaded = [(row, k, lm) for row, k, lm in loaded if lm is not None]
+        if not loaded:
+            continue
+        rows = [row for row, _, _ in loaded]
+        batch = frames.shape[0]
+        yield (pad_to_batch(frames[rows], batch),
+               pad_to_batch(np.stack([lm for _, _, lm in loaded]), batch),
+               [k for _, k, _ in loaded])

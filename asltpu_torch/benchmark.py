@@ -8,14 +8,18 @@ lanes, from staged uint8 frames and from mp4 files to logits.
 Counterpart of the JAX bench (``asltpu/benchmark.py``, ``bench.py``), which
 stays the JAX package's own. Cells, one per (family, lane):
 ``mobilenet_gru`` at batch 32 on the rgb and the yuv420 lane,
-``resnet_transformer`` at batch 16 on the rgb lane and ``pose_bilstm`` at
-batch 64 on landmarks, each at full width with random weights from
-``--seed``. Per video cell:
+``resnet_transformer`` at batch 16, ``i3d`` at batch 4 (64 frames) and
+``two_stream`` at batch 16 (with seeded landmarks of the clip's T) on the
+rgb lane, and ``pose_bilstm`` at batch 64 on landmarks, each at full width
+with random weights from ``--seed``. Per video cell:
 
 - ``device_only``: back-to-back ``predict_fn`` calls on a batch already on
   the device, with the CUDA preprocess kernel and with ``use_pallas=False``
   (the plain PyTorch preprocess), the kernel's launches per predict, the
-  stage times (preprocess, backbone, head) and the peak device memory;
+  stage times (preprocess; backbone: the per-frame 2D network, or I3D's
+  stem through ``Mixed_5c``; head: the temporal head, I3D's pooling and
+  logits, or the fusion model's landmark stream, cross-attention and
+  classifier) and the peak device memory;
 - ``stream``: seeded distinct uint8 batches made in host memory before the
   clock starts, through ``Prefetcher`` (pinned copy on a side stream) →
   predict → logits back on the host, cut into contiguous windows; the
@@ -30,8 +34,8 @@ batch 64 on landmarks, each at full width with random weights from
   ``decode_fast`` (``FAST_ALL``);
 - ``mp4_stream``: ``stream_predict`` over a fresh corpus, mp4 → logits,
   with ``decode_backend="auto"`` (the backend it chose is named) and
-  ``"process"``; its top-1 must equal ``predict``'s on the same staged
-  clips;
+  ``"process"`` (``two_stream``: ``landmarks_for`` gives seeded landmarks
+  per path); its top-1 must equal ``predict``'s on the same staged clips;
 - ``gflops_per_clip`` (``FlopCounterMode`` over the model's forward in one
   predict, divided by the batch; the preprocess kernel is not a PyTorch op
   and adds none) and, on the card, ``mfu`` against the H100 SXM bf16 dense
@@ -68,6 +72,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,9 +80,11 @@ import torch
 
 from asltpu_torch import api, native
 from asltpu_torch.data.decode import make_decode_pool
+from asltpu_torch.data.pad import pad_to_batch
 from asltpu_torch.data.prefetch import Prefetcher
 from asltpu_torch.data.synthetic import synthetic_landmarks, write_video
-from asltpu_torch.models.resnet import ResNet18
+from asltpu_torch.models.fusion import TwoStreamFusion
+from asltpu_torch.models.i3d import I3D
 from asltpu_torch.models.temporal import GRUHead
 from asltpu_torch.models.video import MobileNetV2GRU
 from asltpu_torch.ops import preprocess_kernels
@@ -90,6 +97,8 @@ CELLS: Tuple[Tuple[str, str, int], ...] = (
     ("mobilenet_gru", "yuv420", 32),
     ("resnet_transformer", "rgb", 16),
     ("pose_bilstm", "landmarks", 64),
+    ("i3d", "rgb", 4),
+    ("two_stream", "rgb", 16),
 )
 # The yuv420 lane is the JAX bench's transfer-thin configuration: the host
 # resizes to 256 and crops 224², and sends packed I420.
@@ -188,38 +197,42 @@ def _preprocess(lane: str, opts: argparse.Namespace) -> Dict[str, object]:
     return pp
 
 
-def backbone_and_head(module) -> Tuple[Callable, Callable, torch.dtype]:
-    """A built model's per-frame backbone (NCHW frames → [N, F]), its head
-    ([B, T, F] → logits) and the backbone's compute dtype."""
+def backbone_and_head(module) -> Tuple[Callable, Callable]:
+    """A built video model's backbone (preprocessed clip [B, T, H, W, 3] →
+    features: per frame [B, T, F], or I3D's [B, 1024, T', H', W']) and its
+    head ((features, *the model's other inputs) → logits)."""
     if isinstance(module, MobileNetV2GRU):
-        return (module.features, functools.partial(GRUHead.forward, module),
-                module.features[0][0].weight.dtype)
-    return (functools.partial(ResNet18.forward, module), module.head,
-            module.conv1.weight.dtype)
+        return module.backbone, functools.partial(GRUHead.forward, module)
+    if isinstance(module, I3D):
+        return module.backbone, module.classify
+    if isinstance(module, TwoStreamFusion):
+        return module.backbone, module.fuse
+    return module.backbone, module.head
 
 
-def stage_fns(model: api.Model, x: torch.Tensor) -> Dict[str, Callable[[], object]]:
-    """One predict split into its three stages, each on the previous
-    stage's output: preprocess, backbone over the B·T frames, head."""
+def stage_fns(model: api.Model, *xs: torch.Tensor) -> Dict[str, Callable[[], object]]:
+    """One predict on the device inputs ``xs`` (staged frames, and the
+    landmarks of ``two_stream``) split into its three stages, each on the
+    previous stage's output: preprocess, backbone, head."""
     pp = model.cfg.preprocess
-    backbone, head, dtype = backbone_and_head(model.module)
+    backbone, head = backbone_and_head(model.module)
+    x, rest = xs[0], xs[1:]
     with torch.inference_mode():
         clip = preprocess_clip(x, pp)
-        nchw = clip.flatten(0, 1).permute(0, 3, 1, 2).to(dtype)
-        feats = backbone(nchw).reshape(*clip.shape[:2], -1)
+        feats = backbone(clip)
     return {"preprocess": lambda: preprocess_clip(x, pp),
-            "backbone": lambda: backbone(nchw), "head": lambda: head(feats)}
+            "backbone": lambda: backbone(clip), "head": lambda: head(feats, *rest)}
 
 
-def _gflops_per_clip(model: api.Model, x: torch.Tensor) -> float:
+def _gflops_per_clip(model: api.Model, *xs: torch.Tensor) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
     with torch.inference_mode():
-        clip = preprocess_clip(x, model.cfg.preprocess)
+        clip = preprocess_clip(xs[0], model.cfg.preprocess)
         counter = FlopCounterMode(display=False)
         with counter:
-            model.module(clip)
-    return counter.get_total_flops() / x.shape[0] / 1e9
+            model.module(clip, *xs[1:])
+    return counter.get_total_flops() / xs[0].shape[0] / 1e9
 
 
 def _windows(t_start: float, t_first: float, events: Sequence[Tuple[float, int]],
@@ -244,23 +257,24 @@ def _windows(t_start: float, t_first: float, events: Sequence[Tuple[float, int]]
             "windowed_batches": nb, "clips": clips}
 
 
-def host_stream(model: api.Model, batches: Sequence[np.ndarray],
+def host_stream(model: api.Model, batches: Sequence[Tuple[np.ndarray, ...]],
                 n_windows: int) -> Dict[str, object]:
-    """Host-staged stream: ``batches`` → ``Prefetcher`` → predict → logits
-    on the host. Every batch's top-1 must equal ``predict``'s on it."""
+    """Host-staged stream: ``batches`` (tuples of the model's inputs) →
+    ``Prefetcher`` → predict → logits on the host. Every batch's top-1 must
+    equal ``predict``'s on it."""
     fn = model.predict_fn()
     events: List[Tuple[float, int]] = []
     logits: List[np.ndarray] = []
     t_start = time.perf_counter()
     t_first = None
-    with Prefetcher(((b,) for b in batches), depth=2, device=model.device) as pf:
-        for (frames,) in pf:
+    with Prefetcher(batches, depth=2, device=model.device) as pf:
+        for xs in pf:
             if t_first is None:
                 t_first = time.perf_counter()
-            logits.append(fn(frames).cpu().numpy())
-            events.append((time.perf_counter(), frames.shape[0]))
+            logits.append(fn(*xs).cpu().numpy())
+            events.append((time.perf_counter(), xs[0].shape[0]))
     out = _windows(t_start, t_first, events, n_windows)
-    agree = sum(int((api.predict(model, b)[0] == lg.argmax(-1)).all())
+    agree = sum(int((api.predict(model, *b)[0] == lg.argmax(-1)).all())
                 for b, lg in zip(batches, logits))
     if agree != len(batches):
         raise AssertionError(f"host stream: {len(batches) - agree} batches' top-1 "
@@ -307,20 +321,33 @@ def decode_rate(pp, paths: Sequence[str], batch: int, workers: int,
         pool.shutdown()
 
 
+def corpus_landmarks(num_frames: int) -> Callable[[str], np.ndarray]:
+    """``landmarks_for`` of a synthetic corpus: path → seeded landmarks
+    [num_frames, 543, 3], the same for the same path."""
+    def landmarks_for(path: str) -> np.ndarray:
+        return synthetic_landmarks(1, num_frames, seed=zlib.crc32(path.encode()))[0]
+
+    return landmarks_for
+
+
 def mp4_stream(model: api.Model, paths: Sequence[str], batch: int, workers: int,
                n_windows: int, backend: str) -> Dict[str, object]:
-    """``stream_predict`` over ``paths`` with ``decode_backend=backend``:
-    the first batch (pool start-up, decode of a batch, the first predict)
-    is the fill, the later batches the windows. The pool decodes ahead, so
-    the first window can start with clips decoded during the fill; the
-    median window is the stream's rate. Its top-1 must equal ``predict``'s
-    on the same staged clips, batched the same way (decoded again by a pool
-    of the same backend, after the clock)."""
+    """``stream_predict`` over ``paths`` with ``decode_backend=backend``
+    (and, for ``two_stream``, :func:`corpus_landmarks`): the first batch
+    (pool start-up, decode of a batch, the first predict) is the fill, the
+    later batches the windows. The pool decodes ahead, so the first window
+    can start with clips decoded during the fill; the median window is the
+    stream's rate. Its top-1 must equal ``predict``'s on the same staged
+    clips, batched the same way (decoded again by a pool of the same
+    backend, after the clock)."""
+    landmarks_for = (corpus_landmarks(model.cfg.preprocess.num_frames)
+                     if model.takes_landmarks else None)
     t_start = time.perf_counter()
     stamps, logits = [], []
     for _, _, lg in api.stream_predict(model, paths, batch_size=batch,
                                        num_decode_workers=workers,
-                                       decode_backend=backend):
+                                       decode_backend=backend,
+                                       landmarks_for=landmarks_for):
         stamps.append(time.perf_counter())
         logits.append(lg)
     ends = [stamps[min(i + batch, len(stamps)) - 1] for i in range(0, len(stamps), batch)]
@@ -331,8 +358,13 @@ def mp4_stream(model: api.Model, paths: Sequence[str], batch: int, workers: int,
                    fill_clips=sizes[0])
     pool = make_decode_pool(model.cfg.preprocess, num_workers=workers, backend=backend)
     out["backend"] = pool.backend  # what "auto" chose
+    def inputs(frames, kept):
+        if landmarks_for is None:
+            return (frames,)
+        return frames, pad_to_batch(np.stack([landmarks_for(paths[k]) for k in kept]), batch)
+
     try:
-        want = np.concatenate([api.predict(model, frames)[1][:len(kept)]
+        want = np.concatenate([api.predict(model, *inputs(frames, kept))[1][:len(kept)]
                                for frames, kept in pool.map_batches(paths, batch)])
     finally:
         pool.shutdown()
@@ -380,14 +412,18 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
     cfg = model.cfg.preprocess
     rng = np.random.default_rng(opts.seed + 1)
     shape = (batch, cfg.num_frames, *cfg.staged_frame_shape)
-    host = [rng.integers(0, 256, shape, np.uint8) for _ in range(opts.stream_batches)]
-    x = torch.from_numpy(host[0]).to(device)
+    host = []  # each batch: (frames,) or (frames, landmarks)
+    for i in range(opts.stream_batches):
+        host.append((rng.integers(0, 256, shape, np.uint8),))
+        if model.takes_landmarks:
+            host[-1] += (synthetic_landmarks(batch, cfg.num_frames, seed=opts.seed + 2 + i),)
+    xs = [torch.from_numpy(a).to(device) for a in host[0]]
     fn = model.predict_fn()
 
     kernel = getattr(preprocess_kernels, KERNELS[lane])
     clock.sync()
     kernel.launches = 0
-    logits = fn(x)
+    logits = fn(*xs)
     clock.sync()
     launches = kernel.launches
     if logits.shape != (batch, model.cfg.num_classes) or not bool(torch.isfinite(logits).all()):
@@ -396,20 +432,20 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
     plain = api.load_model(family, seed=opts.seed, device=device,
                            preprocess=dict(pp, use_pallas=False))
     plain_fn = plain.predict_fn()
-    plain_logits = plain_fn(x)
-    ms = clock.ms(lambda: fn(x))
-    plain_ms = clock.ms(lambda: plain_fn(x))
+    plain_logits = plain_fn(*xs)
+    ms = clock.ms(lambda: fn(*xs))
+    plain_ms = clock.ms(lambda: plain_fn(*xs))
     del plain, plain_fn
     with torch.inference_mode():
-        stage_ms = {k: clock.ms(f) for k, f in stage_fns(model, x).items()}
+        stage_ms = {k: clock.ms(f) for k, f in stage_fns(model, *xs).items()}
     peak_gb = None
     if device.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-        fn(x)
+        fn(*xs)
         torch.cuda.synchronize(device)
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    gflops = _gflops_per_clip(model, x)
+    gflops = _gflops_per_clip(model, *xs)
     device_only = {
         "clips_per_s": batch / ms * 1e3, "ms_per_batch": ms,
         "plain_clips_per_s": batch / plain_ms * 1e3, "plain_ms_per_batch": plain_ms,
@@ -423,10 +459,12 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
         "preprocess": dataclasses.asdict(cfg), "device": str(device),
         "device_only": device_only, "gflops_per_clip": gflops,
     }
+    if model.takes_landmarks:
+        cell["landmarks_input"] = list(host[0][1].shape)
     if device.type == "cuda":
         cell["mfu"] = gflops * 1e9 * device_only["clips_per_s"] / PEAK_BF16_FLOP_PER_S
     cell["stream"] = host_stream(model, host, opts.windows)
-    del host, x
+    del host, xs
 
     if corpus is None:
         cell["decode"] = cell["mp4_stream"] = {"ran": False, "why": _cv2_missing()}
@@ -491,7 +529,7 @@ def bench_pose_cell(batch: int, opts: argparse.Namespace,
     }
     if device.type == "cuda":
         cell["mfu_fp32"] = gflops * 1e9 * batch / ms * 1e3 / PEAK_FP32_FLOP_PER_S
-    cell["stream"] = host_stream(model, host, opts.windows)
+    cell["stream"] = host_stream(model, [(b,) for b in host], opts.windows)
     return cell
 
 

@@ -6,7 +6,8 @@ import half of ``asltpu/ckpt.py`` (``import_mobilenetv2``,
 
 Layout rules (flax → torch):
 
-  - conv kernel  (kH, kW, I, O)  → weight (O, I, kH, kW)
+  - conv kernel  (kH, kW, I, O)  → weight (O, I, kH, kW); 3D (kD, kH,
+    kW, I, O) → (O, I, kD, kH, kW)
   - depthwise    (kH, kW, 1, C)  → weight (C, 1, kH, kW) (same permutation)
   - BatchNorm scale/bias → weight/bias; batch_stats mean/var →
     running_mean/running_var
@@ -21,6 +22,12 @@ Layout rules (flax → torch):
     q;k;v row blocks of ``in_proj_weight`` [3d, d] (biases [heads, hd] →
     ``in_proj_bias``); ``out`` [heads, hd, d] → ``out_proj.weight`` [d, d]
   - LayerNorm scale/bias → weight/bias
+  - I3D: each ``Unit3D``'s ``unit/{conv,bn}`` → pytorch-i3d's
+    ``{name}.conv3d``/``{name}.bn`` (the stem's kernel sits at
+    ``Conv3d_1a_7x7/unit/conv/kernel`` as in every other unit); the
+    ``logits`` Dense (1024, C) → ``logits.conv3d.weight`` (C, 1024, 1, 1, 1)
+  - two-stream: ``rgb_backbone`` → ``features.*``; ``fusion{i}`` →
+    ``fusion.{i}.*``, attention as above
 
 Orbax checkpoints are not read yet (ROADMAP queue 1, item 11).
 """
@@ -34,17 +41,22 @@ import torch
 from torch import nn
 
 from asltpu_torch.config import (
+    I3DConfig,
     MobileNetV2GRUConfig,
     ModelConfig,
     PoseBiLSTMConfig,
     ResNet18TransformerConfig,
+    TwoStreamFusionConfig,
 )
 
 Variables = Mapping[str, Any]
 
 
 def _conv(w: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1)))
+    """flax (*spatial, I, O) → torch (O, I, *spatial)."""
+    w = np.asarray(w)
+    return torch.from_numpy(np.ascontiguousarray(
+        w.transpose(w.ndim - 1, w.ndim - 2, *range(w.ndim - 2))))
 
 
 def _vec(v: np.ndarray) -> torch.Tensor:
@@ -136,6 +148,21 @@ def _layer_norm(params: Mapping, name: str) -> Dict[str, torch.Tensor]:
     return {f"{name}.weight": _vec(params["scale"]), f"{name}.bias": _vec(params["bias"])}
 
 
+def _mha(params: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    """flax ``MultiHeadDotProductAttention`` → ``nn.MultiheadAttention``
+    (the inverse of ``asltpu.ckpt._import_mha``)."""
+    d = np.asarray(params["out"]["kernel"]).shape[-1]
+    qkv = ("query", "key", "value")
+    return {
+        f"{name}.in_proj_weight": _vec(np.concatenate(
+            [np.asarray(params[n]["kernel"]).reshape(d, d).T for n in qkv])),
+        f"{name}.in_proj_bias": _vec(np.concatenate(
+            [np.asarray(params[n]["bias"]).reshape(d) for n in qkv])),
+        f"{name}.out_proj.weight": _vec(np.asarray(params["out"]["kernel"]).reshape(d, d).T),
+        f"{name}.out_proj.bias": _vec(params["out"]["bias"]),
+    }
+
+
 def transformer_head_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``TransformerHead`` params → the port's names (``cls``, ``pos``,
     [``in_proj``,] ``layers.{i}.{ln1, attn, ln2, mlp1, mlp2}``,
@@ -147,16 +174,7 @@ def transformer_head_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     n_layers = sum(1 for k in params if k.startswith("layer"))
     for i in range(n_layers):
         p, t = params[f"layer{i}"], f"layers.{i}"
-        attn = p["attn"]
-        d = np.asarray(attn["out"]["kernel"]).shape[-1]
-        sd[f"{t}.attn.in_proj_weight"] = _vec(np.concatenate(
-            [np.asarray(attn[n]["kernel"]).reshape(d, d).T
-             for n in ("query", "key", "value")]))
-        sd[f"{t}.attn.in_proj_bias"] = _vec(np.concatenate(
-            [np.asarray(attn[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
-        sd[f"{t}.attn.out_proj.weight"] = _vec(
-            np.asarray(attn["out"]["kernel"]).reshape(d, d).T)
-        sd[f"{t}.attn.out_proj.bias"] = _vec(attn["out"]["bias"])
+        sd.update(_mha(p["attn"], f"{t}.attn"))
         for name in ("ln1", "ln2"):
             sd.update(_layer_norm(p[name], f"{t}.{name}"))
         for name in ("mlp1", "mlp2"):
@@ -194,18 +212,67 @@ def bilstm_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tenso
     return sd
 
 
+def i3d_state_dict(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``I3D`` params/batch_stats → pytorch-i3d names (the inverse of
+    ``asltpu.ckpt.import_i3d``)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def unit(p: Mapping, s: Mapping, name: str) -> None:
+        sd.update(convbn_state_dict(p["unit"], s["unit"], f"{name}.conv3d", f"{name}.bn"))
+
+    for name in ("Conv3d_1a_7x7", "Conv3d_2b_1x1", "Conv3d_2c_3x3"):
+        unit(params[name], stats[name], name)
+    for mixed in (k for k in params if k.startswith("Mixed_")):
+        for branch in params[mixed]:
+            unit(params[mixed][branch], stats[mixed][branch], f"{mixed}.{branch}")
+    kernel = np.asarray(params["logits"]["kernel"])  # (1024, C)
+    sd["logits.conv3d.weight"] = _vec(kernel.T.reshape(*kernel.T.shape, 1, 1, 1))
+    sd["logits.conv3d.bias"] = _vec(params["logits"]["bias"])
+    return sd
+
+
+def cross_attention_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``CrossAttentionBlock`` params → ``{a_from_b,b_from_a}_{lnq,
+    lnkv,attn}`` and ``{a,b}_mlp_{ln,fc1,fc2}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for way in ("a_from_b", "b_from_a"):
+        for ln in ("lnq", "lnkv"):
+            sd.update(_layer_norm(params[f"{way}_{ln}"], f"{prefix}{way}_{ln}"))
+        sd.update(_mha(params[f"{way}_attn"], f"{prefix}{way}_attn"))
+    for stream in ("a_mlp", "b_mlp"):
+        sd.update(_layer_norm(params[f"{stream}_ln"], f"{prefix}{stream}_ln"))
+        for fc in ("fc1", "fc2"):
+            sd.update(_linear(params[f"{stream}_{fc}"], f"{prefix}{stream}_{fc}"))
+    return sd
+
+
+def two_stream_state_dict(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``TwoStreamFusion`` params/batch_stats → the names
+    ``asltpu.ckpt.import_two_stream`` reads."""
+    sd = mobilenetv2_state_dict(params["rgb_backbone"], stats["rgb_backbone"])
+    sd["pos"] = _vec(params["pos"])
+    for name in ("rgb_proj", "kp_proj", "fc"):
+        sd.update(_linear(params[name], name))
+    n_layers = sum(1 for k in params if k.startswith("fusion"))
+    for i in range(n_layers):
+        sd.update(cross_attention_state_dict(params[f"fusion{i}"], f"fusion.{i}."))
+    return sd
+
+
 def state_dict_from_jax(cfg: ModelConfig, variables: Variables) -> Dict[str, torch.Tensor]:
     """The port model's ``state_dict`` from the JAX model's variables, given
     as a numpy tree (``jax.device_get(model.variables)``: ``params``, plus
     ``batch_stats`` where the model has BatchNorm)."""
     if isinstance(cfg, PoseBiLSTMConfig):
         return bilstm_state_dict(variables["params"], cfg.num_layers)
-    if not isinstance(cfg, (MobileNetV2GRUConfig, ResNet18TransformerConfig)):
-        raise NotImplementedError(
-            f"weights of {type(cfg).__name__} are not ported yet "
-            "(ROADMAP queue 1, items 9, 10)"
-        )
+    if not isinstance(cfg, (MobileNetV2GRUConfig, ResNet18TransformerConfig, I3DConfig,
+                            TwoStreamFusionConfig)):
+        raise ValueError(f"no weight layout for config {type(cfg).__name__}")
     params, stats = variables["params"], variables["batch_stats"]
+    if isinstance(cfg, I3DConfig):
+        return i3d_state_dict(params, stats)
+    if isinstance(cfg, TwoStreamFusionConfig):
+        return two_stream_state_dict(params, stats)
     if isinstance(cfg, MobileNetV2GRUConfig):
         sd = mobilenetv2_state_dict(params["backbone"], stats["backbone"])
         sd.update(gru_head_state_dict(params["head"], cfg.gru_layers))
@@ -228,8 +295,9 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
 # Groups of a model's keys that a checkpoint may leave out as a whole: the
 # module keeps its own. As in the JAX importer: a backbone plus GRU file
 # without ``fc.*`` keeps the classifier, a ResNet-18 file without
-# ``head.*`` the transformer head.
-_OPTIONAL_GROUPS = ("fc.", "head.")
+# ``head.*`` the transformer head, a pytorch-i3d file without ``logits.*``
+# (a Kinetics backbone for a new class count) the I3D classifier.
+_OPTIONAL_GROUPS = ("fc.", "head.", "logits.")
 
 
 def load_torch_checkpoint(module: nn.Module, path: str) -> None:

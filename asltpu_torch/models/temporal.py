@@ -62,16 +62,32 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         ln.eps).to(x.dtype)
 
 
+def attention(mha: nn.MultiheadAttention, q_in: torch.Tensor,
+              kv_in: torch.Tensor) -> torch.Tensor:
+    """flax ``MultiHeadDotProductAttention(q_in, kv_in)`` with the
+    parameters of ``mha`` (``in_proj_weight``/``in_proj_bias`` rows q;k;v,
+    ``out_proj``): q from ``q_in``, k and v from ``kv_in``, each projected
+    and rounded, q scaled by 1/√head_dim, QKᵀ, softmax, the weighted sum of
+    v, the output projection, each rounding to the compute dtype.
+    ``nn.MultiheadAttention``'s own forward is not used, since its fused
+    inference path rounds elsewhere."""
+    b, n, d = q_in.shape
+    heads = mha.num_heads
+    (wq, wk, wv), (bq, bk, bv) = mha.in_proj_weight.chunk(3), mha.in_proj_bias.chunk(3)
+    q, k, v = ((torch.matmul(x, w.t()) + bias).view(b, x.shape[1], heads, d // heads)
+               for x, w, bias in ((q_in, wq, bq), (kv_in, wk, bk), (kv_in, wv, bv)))
+    q = q / torch.tensor(math.sqrt(d // heads), dtype=q.dtype)
+    weights = _softmax(torch.einsum("bqhd,bkhd->bhqk", q, k))
+    weights = F.dropout(weights, mha.dropout, mha.training)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, d)
+    return _dense(out, mha.out_proj)
+
+
 class EncoderBlock(nn.Module):
     """Pre-LN encoder block: x + attn(ln1(x)), then x + mlp2(gelu(mlp1(ln2(x)))).
 
-    ``attn`` is an ``nn.MultiheadAttention`` for its parameter names
-    (``in_proj_weight``/``in_proj_bias`` rows q;k;v, ``out_proj``); its own
-    forward is not used, since its fused inference path rounds elsewhere
-    than flax's ``MultiHeadDotProductAttention``, which this follows: q, k,
-    v projected and rounded, q scaled by 1/√head_dim, QKᵀ, softmax, the
-    weighted sum of v, the output projection, each rounding to the compute
-    dtype."""
+    ``attn`` is an ``nn.MultiheadAttention`` for its parameter names; the
+    block runs it through :func:`attention` as self-attention."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int,
                  dropout: float):
@@ -84,22 +100,9 @@ class EncoderBlock(nn.Module):
         self.mlp2 = nn.Linear(d_model * mlp_ratio, d_model)
         self.dropout = nn.Dropout(dropout)
 
-    def attention(self, y: torch.Tensor) -> torch.Tensor:
-        b, n, d = y.shape
-        heads = self.attn.num_heads
-        q, k, v = (
-            (torch.matmul(y, w.t()) + bias).view(b, n, heads, d // heads)
-            for w, bias in zip(self.attn.in_proj_weight.chunk(3),
-                               self.attn.in_proj_bias.chunk(3))
-        )
-        q = q / torch.tensor(math.sqrt(d // heads), dtype=q.dtype)
-        weights = _softmax(torch.einsum("bqhd,bkhd->bhqk", q, k))
-        weights = F.dropout(weights, self.attn.dropout, self.training)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, d)
-        return _dense(out, self.attn.out_proj)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.dropout(self.attention(_layer_norm(x, self.ln1)))
+        y = _layer_norm(x, self.ln1)
+        x = x + self.dropout(attention(self.attn, y, y))
         y = _gelu(_dense(_layer_norm(x, self.ln2), self.mlp1))
         return x + self.dropout(_dense(y, self.mlp2))
 

@@ -7,17 +7,10 @@ from __future__ import annotations
 
 import torch
 
-from asltpu_torch.models.common import merge_time_into_batch, split_time_from_batch
+from asltpu_torch.models.common import per_frame
 from asltpu_torch.models.mobilenetv2 import MobileNetV2
 from asltpu_torch.models.resnet import ResNet18
 from asltpu_torch.models.temporal import GRUHead, TransformerHead
-
-
-def _per_frame(backbone, clip: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """[B, T, H, W, 3] NHWC clip → [B, T, F] features of ``backbone``."""
-    frames, bt = merge_time_into_batch(clip)
-    # NHWC → NCHW view: channels_last strides, no copy.
-    return split_time_from_batch(backbone(frames.permute(0, 3, 1, 2).to(dtype)), bt)
 
 
 class MobileNetV2GRU(GRUHead):
@@ -38,10 +31,13 @@ class MobileNetV2GRU(GRUHead):
                          gru_layers, dropout)
         self.features = features
 
+    def backbone(self, clip: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, 3] preprocessed NHWC clip → features [B, T, 1280]."""
+        return per_frame(self.features, clip, self.features[0][0].weight.dtype)
+
     def forward(self, clip: torch.Tensor) -> torch.Tensor:
         """[B, T, H, W, 3] preprocessed NHWC clip → logits [B, num_classes]."""
-        feats = _per_frame(self.features, clip, self.features[0][0].weight.dtype)
-        return super().forward(feats)  # [B, T, 1280] → logits
+        return super().forward(self.backbone(clip))  # [B, T, 1280] → logits
 
 
 class ResNet18Transformer(ResNet18):
@@ -61,7 +57,10 @@ class ResNet18Transformer(ResNet18):
                                     d_model, num_heads, num_tx_layers, mlp_ratio,
                                     dropout)
 
+    def backbone(self, clip: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, 3] preprocessed NHWC clip → features [B, T, 512]."""
+        return per_frame(super().forward, clip, self.conv1.weight.dtype)
+
     def forward(self, clip: torch.Tensor) -> torch.Tensor:
         """[B, T, H, W, 3] preprocessed NHWC clip → logits [B, num_classes]."""
-        feats = _per_frame(super().forward, clip, self.conv1.weight.dtype)
-        return self.head(feats)  # [B, T, 512] → logits
+        return self.head(self.backbone(clip))  # [B, T, 512] → logits

@@ -71,7 +71,21 @@ phase printing one JSON line:
    ``decode_backend="auto"`` over the same items names the backend it
    chose, and its top-1 must equal ``predict``'s on the same clips staged
    by the cv2 path.
-10. pose_lane — ``load_model("pose_bilstm")`` at full width (543 × 3
+10. i3d lane — ``load_model("i3d")`` at full width (the Inception-v1
+   network inflated to 3D, 2000 classes) on the rgb lane, ``predict`` on a
+   seeded batch of 4 clips × 64 frames of 256² RGB, with the same checks
+   as the rgb lane; the comparison on varied clips calibrates every
+   BatchNorm3d through the whole 3D backbone.
+11. two_stream lane — ``load_model("two_stream")`` at full width
+   (MobileNetV2 ×1.0, d_model 256, 8 heads, 2 cross-attention layers, 100
+   classes) on the rgb lane, ``predict`` on 16 clips × 16 frames of 256²
+   RGB with seeded landmarks 16 × 16 × 543 × 3, with the same checks.
+12. stem — I3D's stem conv (7×7×7, stride 2, SAME, 3 → 64) in its two
+   forms, the plain strided conv and the space-to-depth rewrite, at the
+   contract shape [4, 64, 224, 224, 3] bf16: within one bf16 ulp of the
+   largest output of each other, both times in turns (plain, s2d, s2d,
+   plain) beside the bound, and the form the model runs.
+13. pose_lane — ``load_model("pose_bilstm")`` at full width (543 × 3
    landmarks, 32 frames, hidden 256, 2 layers, 100 classes) on the card,
    ``predict`` on a seeded batch of 64 with cuDNN's TF32 allowed (PyTorch's
    default): fp32 logits within 1e-5 of the same weights on the CPU, and
@@ -79,7 +93,7 @@ phase printing one JSON line:
    pose-only ``stream_predict`` over a
    ``LandmarkStore.for_path`` gives ``predict``'s logits; device-only
    clips/s by CUDA events. The pose path runs no preprocess kernel.
-11. bench — ``asltpu_torch.benchmark`` in this process over its four
+14. bench — ``asltpu_torch.benchmark`` in this process over its six
    (family, lane) cells with a short stream; its result line.
 
 The kernels' launch counts are read per path: each lane (and the fused
@@ -167,7 +181,13 @@ FAMILIES = {
     "resnet_transformer": {"batch": 16, "config": {
         "d_model": 512, "num_heads": 8, "num_tx_layers": 4, "mlp_ratio": 4,
         "num_classes": 300, "num_frames": 32}},
+    "i3d": {"batch": 4, "config": {"num_classes": 2000, "num_frames": 64}},
+    "two_stream": {"batch": 16, "config": {
+        "width_mult": 1.0, "d_model": 256, "num_heads": 8, "num_fusion_layers": 2,
+        "num_classes": 100, "num_frames": 16}},
 }
+# I3D's stem at the contract shape: [B, T, H, W, 3] in, 64 channels out.
+STEM_SHAPE, STEM_COUT, STEM_REPS = (4, 64, 224, 224, 3), 64, 10
 # The av decoder against the cv2 path, as the JAX package bounds it
 # (tests/unit/test_decode_av.py): mean absolute difference of the uint8
 # bytes, exact av (a clip; a record with a signer box, whose crop may land
@@ -442,30 +462,33 @@ def phase_mbconv():
     return summary
 
 
-def calibrate_bn(module, nchw, forward=None) -> None:
-    """Set every BN's running statistics in ``module`` to those of one
-    seeded batch (a train-mode pass with momentum 1 through ``forward``,
-    ``module`` itself by default). At the seeded init (BN at identity)
-    activations shrink through each depthwise conv of MobileNetV2, and the
-    full-width features come out near 1e-8 and alike for every clip;
-    calibrated, every layer's output is of order 1."""
-    bns = [m for m in module.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+def calibrate_bn(module, inputs, forward=None) -> None:
+    """Set every BN's (2D and 3D) running statistics in ``module`` to those
+    of one seeded batch (a train-mode pass with momentum 1 through
+    ``forward``, ``module`` itself by default). At the seeded init (BN at
+    identity) activations shrink through each depthwise conv of
+    MobileNetV2, and the full-width features come out near 1e-8 and alike
+    for every clip; I3D's grow instead; calibrated, every layer's output is
+    of order 1."""
+    bns = [m for m in module.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     for m in bns:
         m.momentum = 1.0
     module.train()
     with torch.no_grad():
-        (forward or module)(nchw)
+        (forward or module)(inputs)
     module.eval()
     for m in bns:
         m.momentum = 0.1
 
 
 def assert_norms_fp32(module) -> int:
-    """Every BatchNorm2d and LayerNorm parameter and buffer of ``module``
-    must be fp32 (as the reference keeps them under a bf16 compute dtype);
-    returns how many norm layers were checked."""
-    norms = [m for m in module.modules()
-             if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.LayerNorm))]
+    """Every BatchNorm2d, BatchNorm3d and LayerNorm parameter and buffer of
+    ``module`` must be fp32 (as the reference keeps them under a bf16
+    compute dtype); returns how many norm layers were checked."""
+    from asltpu_torch.models.common import NORMS
+
+    norms = [m for m in module.modules() if isinstance(m, NORMS)]
     bad = [(name, t.dtype) for m in norms
            for name, t in list(m.named_parameters()) + list(m.named_buffers())
            if t.is_floating_point() and t.dtype != torch.float32]
@@ -655,10 +678,21 @@ def _varied_clips(seed, batch, t, staged_shape):
     return out
 
 
+def _landmarks(model, batch, seed):
+    """Seeded landmarks [batch, T, 543, 3] for a model that takes them,
+    else None."""
+    from asltpu_torch.data.synthetic import synthetic_landmarks
+
+    if not model.takes_landmarks:
+        return None
+    return synthetic_landmarks(batch, model.cfg.preprocess.num_frames, seed=seed)
+
+
 def _lane_varied(family, pp_overrides, staged_shape):
     """Kernel vs plain preprocess on logits that vary: an fp32 model (fp32
-    preprocess out, TF32 off) with BN calibrated on a seeded batch, its
-    state copied into the ``use_pallas=False`` twin, both fed clips that
+    preprocess out, TF32 off) with BN calibrated on a seeded batch through
+    its backbone (every BN of each family sits there), its state copied
+    into the ``use_pallas=False`` twin, both fed clips (and landmarks) that
     differ from clip to clip. Returns the comparison's numbers; raises when
     the logits barely vary or the two disagree."""
     from asltpu_torch import api
@@ -671,16 +705,18 @@ def _lane_varied(family, pp_overrides, staged_shape):
     t = model.cfg.preprocess.num_frames
     calib = torch.from_numpy(_varied_clips(SEED + 3, 8, t, staged_shape)).to(model.device)
     with torch.inference_mode():
-        calib = preprocess_clip(calib, model.cfg.preprocess).flatten(0, 1)
-    backbone, _, _ = backbone_and_head(model.module)
-    calibrate_bn(model.module, calib.permute(0, 3, 1, 2), backbone)
+        calib = preprocess_clip(calib, model.cfg.preprocess)
+    backbone, _ = backbone_and_head(model.module)
+    calibrate_bn(model.module, calib, backbone)
+    del calib
     plain = api.load_model(family, seed=SEED, compute_dtype="float32",
                            preprocess=dict(pp, use_pallas=False))
     plain.module.load_state_dict(model.module.state_dict())
     frames = _varied_clips(SEED + 4, batch, t, staged_shape)
-    ids, logits = api.predict(model, frames)
-    plain_ids, plain_logits = api.predict(plain, frames)
-    del model, plain, calib
+    lm = _landmarks(model, batch, SEED + 5)
+    ids, logits = api.predict(model, frames, lm)
+    plain_ids, plain_logits = api.predict(plain, frames, lm)
+    del model, plain
     torch.cuda.empty_cache()
     spread = float(np.abs(plain_logits - plain_logits.mean(0)).max())
     err = float(np.abs(logits - plain_logits).max())
@@ -719,12 +755,13 @@ def _lane(name, family, pp_overrides, staged_shape):
     frames = np.random.default_rng(SEED + 1).integers(
         0, 256, (batch, cfg.preprocess.num_frames, *staged_shape), np.uint8)
     assert frames.shape[2:] == cfg.preprocess.staged_frame_shape
+    lm = _landmarks(model, batch, SEED + 2)
     torch.cuda.reset_peak_memory_stats()
 
     torch.cuda.synchronize()
     k.preprocess_rgb.launches = 0
     k.preprocess_yuv420.launches = 0
-    ids, logits = api.predict(model, frames)
+    ids, logits = api.predict(model, frames, lm)
     torch.cuda.synchronize()
     launches = {"preprocess_rgb": k.preprocess_rgb.launches,
                 "preprocess_yuv420": k.preprocess_yuv420.launches}
@@ -734,7 +771,7 @@ def _lane(name, family, pp_overrides, staged_shape):
     plain_model = api.load_model(
         family, seed=SEED, preprocess=dict(pp_overrides, use_pallas=False))
     assert_norms_fp32(plain_model.module)
-    plain_ids, plain_logits = api.predict(plain_model, frames)
+    plain_ids, plain_logits = api.predict(plain_model, frames, lm)
     err = float(np.abs(logits - plain_logits).max())
     top2 = np.sort(plain_logits, axis=-1)
     if not (ids == plain_ids).all() or err > LANE_LOGIT_ATOL:
@@ -742,18 +779,19 @@ def _lane(name, family, pp_overrides, staged_shape):
                              f"(max logit err {err}, top-1 {ids} vs {plain_ids})")
     varied = _lane_varied(family, pp_overrides, staged_shape)
 
-    x = torch.from_numpy(frames).to(model.device)
+    xs = [torch.from_numpy(a).to(model.device) for a in (frames, lm) if a is not None]
     fn, plain_fn = model.predict_fn(), plain_model.predict_fn()
-    ms = time_ms(lambda: fn(x), PREDICT_REPS)
-    plain_ms = time_ms(lambda: plain_fn(x), PREDICT_REPS)
+    ms = time_ms(lambda: fn(*xs), PREDICT_REPS)
+    plain_ms = time_ms(lambda: plain_fn(*xs), PREDICT_REPS)
     # The same predict, stage by stage: preprocess, backbone, head.
     with torch.inference_mode():
         split = {stage: time_ms(f, KERNEL_REPS if stage == "preprocess" else PREDICT_REPS)
-                 for stage, f in stage_fns(model, x).items()}
+                 for stage, f in stage_fns(model, *xs).items()}
     emit({
         "phase": f"{name}_lane", "family": family,
         "config": {"preprocess": pp_overrides, "compute_dtype": cfg.compute_dtype},
-        "input": list(frames.shape), "launches": launches,
+        "input": list(frames.shape),
+        "landmarks_input": None if lm is None else list(lm.shape), "launches": launches,
         "norm_layers_fp32": norms,
         "logits_finite": True, "top1_equal_plain": True,
         "max_logit_err_vs_plain": err, "atol": LANE_LOGIT_ATOL,
@@ -764,9 +802,65 @@ def _lane(name, family, pp_overrides, staged_shape):
         "plain_device_clips_per_s": batch / plain_ms * 1e3,
         "stage_ms": split, "peak_mem_gb": peak_gb,
     })
-    del model, plain_model, x
+    del model, plain_model, xs
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_stem():
+    """I3D's stem conv in its two forms at the contract shape, bf16: the
+    plain strided conv against the space-to-depth rewrite (one bf16 ulp of
+    the largest output), both timed in turns beside the bound: the
+    multiply-adds of the plain form (7³·3 per output value; the rewrite
+    adds zero taps) at the bf16 tensor-core peak, or x, w and out once."""
+    from asltpu_torch.models import i3d
+    from asltpu_torch.ops import stem_s2d as st
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    b, t, h, w, c = STEM_SHAPE
+    x = torch.randn(STEM_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    x = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels_last_3d memory
+    wt = (torch.randn((STEM_COUT, c, 7, 7, 7), generator=gen, device=dev)
+          / (c * 343) ** 0.5).to(torch.bfloat16).contiguous(
+              memory_format=torch.channels_last_3d)
+    with torch.inference_mode():
+        plain = st.stem_conv3d_plain(x, wt)
+        s2d = st.stem_conv3d_s2d(x, wt)
+        model_form = i3d.stem_conv(x, wt)
+    torch.cuda.synchronize()
+    out_shape = (b, STEM_COUT, t // 2, h // 2, w // 2)
+    assert plain.shape == s2d.shape == out_shape, (plain.shape, s2d.shape)
+    peak = float(plain.float().abs().max())
+    err = float((s2d.float() - plain.float()).abs().max())
+    atol = _bf16_ulp(peak)
+    if not err <= atol:
+        raise AssertionError(f"stem forms disagree: {err} > one bf16 ulp {atol} of {peak}")
+    runs = {"plain": [], "s2d": []}
+    with torch.inference_mode():
+        for form in ("plain", "s2d", "s2d", "plain"):
+            fn = st.stem_conv3d_plain if form == "plain" else st.stem_conv3d_s2d
+            runs[form].append(time_ms(lambda: fn(x, wt), STEM_REPS))
+    n_out = int(np.prod(out_shape))
+    ops = 2 * n_out * c * 343
+    nbytes = 2 * (x.numel() + wt.numel() + n_out)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_FLOP_PER_S * 1e3
+    ms = {form: min(r) for form, r in runs.items()}
+    result = {
+        "phase": "stem", "input": list(STEM_SHAPE), "dtype": "bfloat16",
+        "output": list(out_shape), "max_abs_err_s2d_vs_plain": err, "atol": atol,
+        "max_abs_out": peak, "ms": ms, "ms_runs": runs,
+        "faster": min(ms, key=ms.get),
+        "model_form": ("plain" if torch.equal(model_form, plain) else
+                       "s2d" if torch.equal(model_form, s2d) else "neither bit-equal"),
+        "operations": ops, "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    result["share_of_bound"] = {f: result["bound_ms"] / v for f, v in ms.items()}
+    emit(result)
+    del x, wt, plain, s2d, model_form
+    torch.cuda.empty_cache()
+    return result
 
 
 def phase_host():
@@ -1094,21 +1188,26 @@ def _run() -> int:
                 PreprocessConfig(**YUV_LANE).staged_frame_shape)
     resnet = _lane("resnet", "resnet_transformer", RGB_LANE,
                    PreprocessConfig().staged_frame_shape)
-    if min(rgb["preprocess_rgb"], yuv["preprocess_yuv420"], resnet["preprocess_rgb"]) < 1:
-        raise AssertionError(f"a kernel did not run on its lane: {rgb}, {yuv}, {resnet}")
     mbconv = phase_mbconv()
     fused = phase_fused_backbone()
     phase_host()
     phase_decode_backends()
+    i3d = _lane("i3d", "i3d", RGB_LANE, PreprocessConfig().staged_frame_shape)
+    fusion = _lane("two_stream", "two_stream", RGB_LANE,
+                   PreprocessConfig().staged_frame_shape)
+    rgb_by_path = {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
+                   "resnet_transformer/rgb": resnet["preprocess_rgb"],
+                   "i3d/rgb": i3d["preprocess_rgb"],
+                   "two_stream/rgb": fusion["preprocess_rgb"]}
+    if min(*rgb_by_path.values(), yuv["preprocess_yuv420"]) < 1:
+        raise AssertionError(f"a kernel did not run on its lane: {rgb_by_path}, {yuv}")
+    phase_stem()
     phase_pose_lane()
     phase_bench()
 
     kernels = []
     for lane, fn, by_path, replaces in (
-        ("rgb", "preprocess_rgb",
-         {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
-          "resnet_transformer/rgb": resnet["preprocess_rgb"]},
-         "asltpu/ops/preprocess_pallas.py:67"),
+        ("rgb", "preprocess_rgb", rgb_by_path, "asltpu/ops/preprocess_pallas.py:67"),
         ("yuv420", "preprocess_yuv420",
          {"mobilenet_gru/yuv420": yuv["preprocess_yuv420"]},
          "asltpu/ops/preprocess_pallas.py:216"),

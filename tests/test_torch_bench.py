@@ -59,6 +59,34 @@ def test_bench_on_cpu_both_families(capsys):
             > cells[("mobilenet_gru", "yuv420")]["gflops_per_clip"])
 
 
+def test_bench_i3d_and_two_stream_cells_on_cpu(capsys):
+    """The two new video cells at 8 frames (I3D's pools need T ≥ 5): the
+    stages split as I3D's backbone and pooled head and as the fusion
+    model's RGB backbone and fusion head; the fusion cell carries seeded
+    landmarks through every part, mp4 → logits included."""
+    args = TINY + ["--frames", "8", "--cells", "i3d:rgb,two_stream:rgb",
+                   "--decode-workers", "1"]
+    assert benchmark.main(args) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cells = {c["family"]: c for c in line["cells"]}
+    assert set(cells) == {"i3d", "two_stream"}
+    assert set(cells["i3d"]) == CELL_KEYS
+    assert set(cells["two_stream"]) == CELL_KEYS | {"landmarks_input"}
+    assert cells["two_stream"]["landmarks_input"] == [2, 8, 543, 3]
+    for family, cell in cells.items():
+        assert cell["input"] == [2, 8, 40, 40, 3]
+        only = cell["device_only"]
+        assert set(only) == DEVICE_ONLY_KEYS and only["kernel"] == "preprocess_rgb"
+        assert set(only["stage_ms"]) == {"preprocess", "backbone", "head"}
+        assert only["kernel_launches_per_predict"] == 0 and only["clips_per_s"] > 0
+        assert cell["stream"]["clips"] == 8 and cell["stream"]["top1_equal_predict"]
+        for backend in ("auto", "process"):
+            assert cell["mp4_stream"][backend]["top1_equal_predict"] is True
+            assert cell["mp4_stream"][backend]["clips"] == 4
+    # I3D's 3D convs do more work per clip than MobileNetV2 over the frames.
+    assert cells["i3d"]["gflops_per_clip"] > cells["two_stream"]["gflops_per_clip"] > 0
+
+
 def test_bench_pose_cell_on_cpu(capsys):
     """The pose cell: no preprocess kernel, device-only and host-staged
     stream clips/s, its FLOPs counted from the shapes."""

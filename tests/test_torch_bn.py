@@ -73,6 +73,8 @@ def test_bf16_layers_match_jax_with_fp32_bn():
 SMALL = {
     "mobilenet_gru": dict(num_classes=7, gru_hidden=16, width_mult=0.35),
     "resnet_transformer": dict(num_classes=7, d_model=32, num_heads=4, num_tx_layers=2),
+    "i3d": dict(num_classes=7),
+    "two_stream": dict(num_classes=7, width_mult=0.35, d_model=32, num_heads=4),
 }
 PP = {"num_frames": 2, "staging_size": (40, 40), "resize_short": 36, "crop": 32}
 
@@ -104,8 +106,9 @@ def test_load_model_keeps_norms_fp32(family):
     model = tapi.load_model(family, device="cpu", preprocess=dict(PP), **SMALL[family])
     keep = tapi.fp32_modules(model.module)
     kinds = _check_dtypes(model.module, keep)
-    assert {"Conv2d", "BatchNorm2d"} <= kinds
-    if family == "resnet_transformer":
+    assert ({"Conv3d", "BatchNorm3d"} if family == "i3d"
+            else {"Conv2d", "BatchNorm2d"}) <= kinds
+    if family in ("resnet_transformer", "two_stream"):
         assert {"LayerNorm", "MultiheadAttention", "Linear"} <= kinds
     twin = tapi.load_model(family, device="cpu", seed=1, compute_dtype="float32",
                            preprocess=dict(PP), **SMALL[family])

@@ -335,3 +335,70 @@ def test_pose_bilstm_on_the_card_is_fp32_with_tf32_allowed():
     np.testing.assert_allclose(logits, want, atol=1e-5)
     errs = (float(np.abs(logits - want).max()), float(np.abs(tf32_logits - want).max()))
     assert errs[1] > 1e-5, f"fp32 and TF32 LSTM max logit errors vs the CPU: {errs}"
+
+
+@pytest.mark.parametrize("family,kw", [
+    ("i3d", dict(num_classes=7)),
+    ("two_stream", dict(num_classes=7, width_mult=0.35, d_model=64, num_heads=4)),
+])
+def test_i3d_and_two_stream_on_the_card_match_the_cpu(card, family, kw):
+    """fp32 (TF32 off), 16 frames of 32² staged at 40×48: the rgb kernel
+    launches once per predict, the logits are the CPU's within 1e-5 of the
+    largest (at least 1e-3: the seeded I3D's logits reach ~1300, where
+    fp32 sums in another order differ by 2.3e-3, 1.8e-6 relative, on an
+    NVIDIA H100 80GB HBM3), and the fusion model takes its landmarks to the
+    card."""
+    from asltpu_torch.data.synthetic import synthetic_landmarks
+
+    pp = {"num_frames": 16, "staging_size": (40, 48), "resize_short": 36, "crop": 32,
+          "out_dtype": "float32"}
+    kw = dict(kw, compute_dtype="float32", preprocess=pp)
+    on_card = api.load_model(family, seed=3, **kw)
+    on_cpu = api.load_model(family, seed=3, device="cpu", **kw)
+    frames = np.random.default_rng(4).integers(0, 256, (2, 16, 40, 48, 3), np.uint8)
+    lm = synthetic_landmarks(2, 16, seed=5) if family == "two_stream" else None
+    before = k.preprocess_rgb.launches
+    ids, logits = api.predict(on_card, frames, lm)
+    assert k.preprocess_rgb.launches == before + 1
+    want_ids, want = api.predict(on_cpu, frames, lm)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_allclose(logits, want, rtol=0,
+                               atol=1e-5 * max(float(np.abs(want).max()), 100.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_forms_agree_on_the_card(card, dtype):
+    """The space-to-depth stem and the plain strided conv on the card: fp32
+    (TF32 off) within 1e-5 of the largest output, bf16 within one bf16 ulp
+    of it; an odd axis takes only the plain form."""
+    from asltpu_torch.ops import stem_s2d as st
+
+    gen = torch.Generator(card).manual_seed(6)
+    x = torch.randn((2, 16, 48, 40, 3), generator=gen, device=card).to(dtype)
+    x = x.permute(0, 4, 1, 2, 3)
+    w = (torch.randn((64, 3, 7, 7, 7), generator=gen, device=card) / 32).to(dtype)
+    plain, s2d = st.stem_conv3d_plain(x, w), st.stem_conv3d_s2d(x, w)
+    assert plain.shape == s2d.shape == (2, 64, 8, 24, 20)
+    peak = float(plain.float().abs().max())
+    atol = 1e-5 * peak if dtype == torch.float32 else _bf16_ulp(peak)
+    torch.testing.assert_close(s2d.float(), plain.float(), rtol=0, atol=atol)
+    assert not st.s2d_applies(x[:, :, :15])
+
+
+def test_batchnorm3d_keeps_bf16_input_in_fp32_on_the_card(card):
+    """BatchNorm3d with bf16 input and fp32 parameters (as ``load_model``
+    keeps I3D's) on the card: within one bf16 ulp of each value of the fp32
+    normalisation rounded once."""
+    bn = torch.nn.BatchNorm3d(16, eps=1e-3).eval().to(card)
+    gen = torch.Generator(card).manual_seed(7)
+    with torch.no_grad():
+        bn.running_mean.normal_(0, 4, generator=gen)
+        bn.running_var.uniform_(0.05, 8, generator=gen)
+        x = (torch.randn((2, 16, 3, 5, 4), generator=gen, device=card) * 4).bfloat16()
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        got = bn(x)
+        ref = torch.nn.functional.batch_norm(x.float(), bn.running_mean, bn.running_var,
+                                             bn.weight, bn.bias, False, 0.0, bn.eps)
+    assert got.dtype == torch.bfloat16
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert bool(((got.float() - ref).abs() <= ulp).all())

@@ -126,14 +126,21 @@ def test_cpu_fused_backbone_leaves_mbconv_counter_at_zero():
 
 
 def test_unported_names_and_backends_say_so():
+    """Every config of the registry builds (``i3d`` and ``two_stream`` too,
+    at full width); an unknown name or backend raises."""
     from asltpu_torch import api, native
-    from asltpu_torch.config import PreprocessConfig
+    from asltpu_torch.config import CONFIG_REGISTRY, PreprocessConfig
     from asltpu_torch.data.decode import make_decode_pool
 
-    for name in ("i3d", "two_stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.build_module(api.get_config(name))
+    built = {name: api.build_module(api.get_config(name)) for name in CONFIG_REGISTRY}
+    assert built["i3d"].logits.conv3d.weight.shape == (2000, 1024, 1, 1, 1)
+    assert built["two_stream"].fc.in_features == 512
+    assert built["two_stream"].features.out_features == 1280
     assert api.build_module(api.get_config("pose_bilstm")).fc.out_features == 100
+    with pytest.raises(KeyError):
+        api.get_config("c3d")
+    with pytest.raises(ValueError, match="no model"):
+        api.build_module(api.ModelConfig())
     with pytest.raises(ValueError, match="unknown decode backend"):
         make_decode_pool(PreprocessConfig(), backend="gpu")
     for backend in ("auto", "native", "process", "thread"):

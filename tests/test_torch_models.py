@@ -48,6 +48,33 @@ def randomize_bn(variables, seed=0):
     return variables
 
 
+def draw_variables(module, *inputs, seed=0):
+    """Variables of ``module`` without compiling its init (a large JAX
+    model's ``init`` compiles for seconds): the shapes from
+    ``jax.eval_shape``, kernels from N(0, 1/fan_in), biases from N(0, 0.1),
+    LayerNorm scales from U(0.5, 1.5), positions from N(0, 0.02), then
+    ``randomize_bn``'s BN draws. A numpy tree."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *inputs)
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        keys = [p.key for p in path]
+        if keys[-1] == "kernel":
+            qkv = len(keys) > 1 and keys[-2] in ("query", "key", "value")
+            fan_in = s.shape[0] if qkv else int(np.prod(s.shape[:-1]))
+            return (rng.standard_normal(s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if keys[-1] == "bias":
+            return rng.normal(0.0, 0.1, s.shape).astype(np.float32)
+        if keys[-1] == "scale":
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        if keys[-1] == "pos":
+            return rng.normal(0.0, 0.02, s.shape).astype(np.float32)
+        return np.ones(s.shape, np.float32) if keys[-1] == "var" else np.zeros(
+            s.shape, np.float32)
+
+    return randomize_bn(jax.tree_util.tree_map_with_path(draw, shapes), seed)
+
+
 def _init(module, *inputs, seed=0):
     """flax init with randomized BN, as numpy."""
     return randomize_bn(module.init(jax.random.PRNGKey(seed), *inputs), seed)
@@ -201,5 +228,10 @@ def test_state_dict_round_trips_through_jax_importer(small_jax_model, tmp_path):
 
 
 def test_state_dict_from_jax_refuses_unported_configs():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tckpt.state_dict_from_jax(get_config("i3d"), {"params": {}})
+    """Every config of the registry has its layout now (I3D and two-stream
+    are held in tests/test_torch_i3d.py and test_torch_fusion.py); a config
+    without one raises before it reads the variables."""
+    from asltpu_torch.config import ModelConfig
+
+    with pytest.raises(ValueError, match="no weight layout"):
+        tckpt.state_dict_from_jax(ModelConfig(), {"params": {}})

@@ -3,7 +3,8 @@
 
     python3 tools/bn_dtype_ab.py
 
-For each of the bench's cells, ``load_model`` (every BatchNorm fp32: bf16
+For each of the bench's cells of a 2D family (``mobilenet_gru``,
+``resnet_transformer``), ``load_model`` (every BatchNorm fp32: bf16
 input, fp32 parameters and statistics, one rounding) against the same
 weights with every BatchNorm cast to bf16 (how the port ran before BN was
 kept fp32), in one process on one card: device-only ``predict`` and
@@ -39,13 +40,13 @@ def _bf16_bn(model: api.Model) -> api.Model:
     return twin
 
 
-def _bn_kernels(backbone, nchw) -> dict:
+def _bn_kernels(backbone, clip) -> dict:
     """Device time (ms) and launches of the device kernels of one backbone
     call whose names mention batch norm, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        backbone(nchw)
+        backbone(clip)
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
@@ -64,6 +65,8 @@ def main() -> int:
     device = torch.device("cuda")
     clock = benchmark.Clock(device, reps=5, samples=10, warmup=5)
     for family, lane, batch in benchmark.CELLS:
+        if family not in ("mobilenet_gru", "resnet_transformer"):
+            continue
         model = api.load_model(family, seed=0, preprocess=dict(benchmark.LANES[lane]))
         twin = _bf16_bn(model)
         pp = model.cfg.preprocess
@@ -81,11 +84,10 @@ def main() -> int:
             logits = {k: f(x).float() for k, f in fns.items()}
             kernels = {}
             for key, m in (("fp32_bn", model), ("bf16_bn", twin)):
-                backbone, _, dtype = benchmark.backbone_and_head(m.module)
-                nchw = torch.zeros(batch * pp.num_frames, 3, pp.crop, pp.crop,
-                                   device=device, dtype=dtype).to(
-                                       memory_format=torch.channels_last)
-                kernels[key] = _bn_kernels(backbone, nchw)
+                backbone, _ = benchmark.backbone_and_head(m.module)
+                clip = torch.zeros(batch, pp.num_frames, pp.crop, pp.crop, 3,
+                                   device=device, dtype=pp.out_torch_dtype)
+                kernels[key] = _bn_kernels(backbone, clip)
         print(json.dumps({
             "cell": f"{family}/{lane}", "batch": batch,
             "predict_ms_runs": runs, "backbone_ms_runs": backbone_runs,
