@@ -14,6 +14,11 @@ cross-attention between the two.
 The entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly running on the CPU.
 
+Training: :func:`build_trainable` builds a model to train (fp32 master
+parameters, computing in the config's dtype) for
+:mod:`asltpu_torch.train.loop`, and ``load_model(name, checkpoint=<dir>)``
+reads back the port's training checkpoints (:mod:`asltpu_torch.ckpt`).
+
 The JAX package's ``split_predict_fn``, ``raw_apply_fn`` and
 ``prefer_split`` work around a TPU host link and compose with ``jax.jit``;
 eager PyTorch has no use for them, so they are not ported.
@@ -92,7 +97,8 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             landmark_dim=cfg.landmark_dim,
         )
     if isinstance(cfg, I3DConfig):
-        return I3D(num_classes=cfg.num_classes, dropout=cfg.dropout)
+        return I3D(num_classes=cfg.num_classes, dropout=cfg.dropout, remat=cfg.remat,
+                   dtype=cfg.compute_torch_dtype)
     if isinstance(cfg, TwoStreamFusionConfig):
         return TwoStreamFusion(
             num_classes=cfg.num_classes,
@@ -185,7 +191,10 @@ def load_model(
     """Build (and optionally restore) a model by config name.
 
     Weights are random from ``torch.Generator().manual_seed(seed)``, or read
-    from a torchvision-layout ``.pt``/``.pth`` ``checkpoint``. Convs,
+    from a torchvision-layout ``.pt``/``.pth`` ``checkpoint``, or from a
+    port training checkpoint directory (a step dir, a ``ckpt_dir`` for its
+    newest step, or its ``best/``; the JAX package's orbax directories are
+    not read). Convs,
     linears and attention are cast to ``compute_dtype``
     (:func:`asltpu_torch.models.common.cast_for_compute`); every BatchNorm
     and LayerNorm keeps fp32 parameters and statistics, and so do the parts
@@ -198,16 +207,40 @@ def load_model(
     module = build_module(cfg)
     init_weights(module, torch.Generator().manual_seed(seed))
     if checkpoint:
-        if not checkpoint.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                "orbax checkpoints are not read by the port yet "
-                "(ROADMAP queue 1, item 11); pass a .pt/.pth file"
-            )
         from asltpu_torch import ckpt
 
-        ckpt.load_torch_checkpoint(module, checkpoint)
+        if checkpoint.endswith((".pt", ".pth")):
+            ckpt.load_torch_checkpoint(module, checkpoint)
+        else:
+            module.load_state_dict(ckpt.load_trained_state_dict(checkpoint))
     cast_for_compute(module, cfg.compute_torch_dtype, fp32_modules(module))
     to_channels_last(module.to(device=dev)).eval()
+    return Model(cfg=cfg, module=module, device=dev)
+
+
+# The families whose modules train; the others wait for their compute-dtype
+# change and parity tests (ROADMAP queue 1, item 11b).
+TRAINABLE = (I3DConfig, PoseBiLSTMConfig)
+
+
+def build_trainable(name: str, seed: int = 0,
+                    device: Union[None, str, torch.device] = None, **overrides) -> Model:
+    """A model to train: its module built from the config as
+    :func:`load_model` builds it and initialised from ``seed``, with fp32
+    parameters (the masters; the module computes in ``compute_dtype``),
+    laid out channels_last, in train mode, on ``device`` (the card by
+    default). Counterpart of the JAX package's ``build_module`` +
+    ``create_train_state`` pair; pass ``model.module`` to
+    :func:`asltpu_torch.train.loop.create_train_state` or ``train``."""
+    dev = resolve_device(device)
+    cfg = get_config(name, **overrides)
+    if not isinstance(cfg, TRAINABLE):
+        raise NotImplementedError(
+            f"training {name} is not ported yet (ROADMAP queue 1, item 11b); "
+            "i3d and pose_bilstm train")
+    module = build_module(cfg)
+    init_weights(module, torch.Generator().manual_seed(seed))
+    to_channels_last(module.to(device=dev)).train()
     return Model(cfg=cfg, module=module, device=dev)
 
 

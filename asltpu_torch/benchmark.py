@@ -41,6 +41,18 @@ with random weights from ``--seed``. Per video cell:
   and adds none) and, on the card, ``mfu`` against the H100 SXM bf16 dense
   peak.
 
+The ``i3d:train`` cell measures I3D fine-tuning (``asltpu_torch.train``):
+full production train steps (the rgb kernel's preprocess, forward,
+label-smoothed cross-entropy, backward, clip, AdamW) on a staged batch
+already on the device, input and labels varied from step to step, in two
+configurations, each its own result: the JAX bench's (batch 16, remat
+off) and the production default (``TrainConfig``'s batch 8, remat on).
+Each reports the step's time, steps/s and train clips/s, the peak device
+memory, the kernel's launches per step, ``gflops_per_clip`` of forward +
+backward (``FlopCounterMode`` over one step with remat off) with the remat
+recompute counted apart (``recompute_gflops_per_clip``), and on the card
+``mfu`` (forward + backward, without the recompute) against the bf16 peak.
+
 The ``pose_bilstm`` cell has ``device_only`` (no preprocess kernel: its
 ``kernel`` is null with 0 launches, and ``gflops_per_clip`` counts the
 LSTM's and the classifier's multiply-adds from the shapes) and ``stream``
@@ -73,7 +85,7 @@ import sys
 import tempfile
 import time
 import zlib
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,7 +111,11 @@ CELLS: Tuple[Tuple[str, str, int], ...] = (
     ("pose_bilstm", "landmarks", 64),
     ("i3d", "rgb", 4),
     ("two_stream", "rgb", 16),
+    ("i3d", "train", 0),  # batches per configuration: TRAIN_CONFIGS
 )
+# The train cell's configurations: (name, clips per batch, remat). The JAX
+# bench's measured one (asltpu/benchmark.py:1087-1093) and TrainConfig's.
+TRAIN_CONFIGS = (("jax_bench", 16, False), ("default", 8, True))
 # The yuv420 lane is the JAX bench's transfer-thin configuration: the host
 # resizes to 256 and crops 224², and sends packed I420.
 LANES = {
@@ -482,6 +498,86 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
     return cell
 
 
+def _train_gflops(state, step_fn, x, labels) -> float:
+    """Operations of one train step, GFLOP (``FlopCounterMode``: convs and
+    matmuls, forward and backward, and the recompute where remat is on; the
+    preprocess kernel is not a PyTorch op)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step_fn(state, x, labels)
+    return counter.get_total_flops() / 1e9
+
+
+def bench_train_cells(opts: argparse.Namespace,
+                      device: torch.device) -> Iterator[Dict[str, object]]:
+    """The ``i3d:train`` cell: one result per :data:`TRAIN_CONFIGS` entry
+    (``--batch`` overrides their batches), yielded as each is measured."""
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.train.loop import create_train_state, make_step_fn
+
+    clock = Clock(device, reps=2, samples=5, warmup=2) if device.type == "cuda" else \
+        Clock(device, reps=1, samples=2, warmup=1)
+    for name, config_batch, remat in TRAIN_CONFIGS:
+        batch = opts.batch or config_batch
+        model = api.build_trainable("i3d", seed=opts.seed, device=device, remat=remat,
+                                    preprocess=_preprocess("rgb", opts))
+        cfg = model.cfg
+        tcfg = TrainConfig(batch_size=batch, num_steps=1000, warmup_steps=100)
+        state = create_train_state(model.module, tcfg, opts.seed)
+        step_fn = make_step_fn(tcfg, cfg.preprocess)
+        shape = (batch, cfg.preprocess.num_frames, *cfg.preprocess.staged_frame_shape)
+        gen = torch.Generator(device).manual_seed(opts.seed + 1)
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=gen)
+        # Input and labels varied from step to step.
+        inputs = [(x + k, (torch.arange(batch, device=device) + k) % cfg.num_classes)
+                  for k in range(2)]
+        del x
+        turn = [0]
+
+        def step():
+            xk, lk = inputs[turn[0] % 2]
+            turn[0] += 1
+            return step_fn(state, xk, lk)
+
+        kernel = preprocess_kernels.preprocess_rgb
+        clock.sync()
+        kernel.launches = 0
+        _, metrics = step()
+        clock.sync()
+        launches = kernel.launches
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"i3d/train {name}: metrics not finite: {metrics}")
+        ms = clock.ms(step)
+        peak_gb = None
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            step()
+            torch.cuda.synchronize(device)
+            peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        model.module.remat = False
+        fwd_bwd = _train_gflops(state, step_fn, *inputs[0]) / batch
+        model.module.remat = True
+        with_remat = _train_gflops(state, step_fn, *inputs[0]) / batch
+        model.module.remat = remat
+        cell: Dict[str, object] = {
+            "family": "i3d", "lane": "train", "config": name, "batch": batch, "remat": remat,
+            "input": list(shape), "compute_dtype": cfg.compute_dtype,
+            "param_dtype": "float32", "device": str(device),
+            "ms_per_step": ms, "steps_per_s": 1e3 / ms, "clips_per_s": batch * 1e3 / ms,
+            "peak_mem_gb": peak_gb, "kernel": "preprocess_rgb",
+            "kernel_launches_per_step": launches, "loss": float(metrics["loss"]),
+            "gflops_per_clip": fwd_bwd, "recompute_gflops_per_clip": with_remat - fwd_bwd,
+            "timer": clock.source,
+        }
+        if device.type == "cuda":
+            cell["mfu"] = fwd_bwd * 1e9 * cell["clips_per_s"] / PEAK_BF16_FLOP_PER_S
+        del model, state, inputs
+        yield cell
+
+
 def pose_gflops_per_clip(cfg) -> float:
     """Multiply-adds of one ``pose_bilstm`` clip, ×2: per layer and
     direction, the input projection of every step (F × 4H) and the
@@ -584,17 +680,21 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
             family, lane = pair.split(":")
             batch = opts.batch or batches[(family, lane)]
             t0 = time.perf_counter()
-            if family == "pose_bilstm":
-                cell = bench_pose_cell(batch, opts, device)
+            if lane == "train":
+                results: Iterable[Dict[str, object]] = bench_train_cells(opts, device)
+            elif family == "pose_bilstm":
+                results = [bench_pose_cell(batch, opts, device)]
             else:
-                cell = bench_cell(family, lane, batch, opts, device, corpus,
-                                  seed0=(opts.seed * 10 + i) * 10_000)
-            cell["seconds"] = time.perf_counter() - t0
-            print(json.dumps({"cell": f"{family}/{lane}", **cell}), file=sys.stderr,
-                  flush=True)
-            cells.append(cell)
-            if device.type == "cuda":
-                torch.cuda.empty_cache()
+                results = [bench_cell(family, lane, batch, opts, device, corpus,
+                                      seed0=(opts.seed * 10 + i) * 10_000)]
+            for cell in results:
+                cell["seconds"] = time.perf_counter() - t0
+                print(json.dumps({"cell": f"{family}/{lane}", **cell}), file=sys.stderr,
+                      flush=True)
+                cells.append(cell)
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                t0 = time.perf_counter()
     return {"bench": "asltpu_torch", "card": card, "seed": opts.seed, "cells": cells}
 
 

@@ -1,8 +1,12 @@
-"""Carrying weights into the port: from the JAX package's variables, and
-from torchvision-layout ``.pt``/``.pth`` files. Counterpart of the torch
-import half of ``asltpu/ckpt.py`` (``import_mobilenetv2``,
-``import_resnet18``, ``import_torch_rnn``, ``import_transformer_head``,
-``load_torch_checkpoint``), run in the other direction.
+"""Weights and train states in and out of the port: from the JAX package's
+variables, from torchvision-layout ``.pt``/``.pth`` files, and the port's
+own training checkpoints. Counterpart of ``asltpu/ckpt.py``: its torch
+import half (``import_mobilenetv2``, ``import_resnet18``,
+``import_torch_rnn``, ``import_transformer_head``,
+``load_torch_checkpoint``) run in the other direction, and its train-state
+half (``save_train_state``, ``try_restore_train_state``,
+``save_best_state``, ``load_best_metric``, ``save_data_state``,
+``load_data_state``) in the port's own layout.
 
 Layout rules (flax → torch):
 
@@ -29,12 +33,27 @@ Layout rules (flax → torch):
   - two-stream: ``rgb_backbone`` → ``features.*``; ``fusion{i}`` →
     ``fusion.{i}.*``, attention as above
 
-Orbax checkpoints are not read yet (ROADMAP queue 1, item 11).
+Training checkpoints, under the JAX package's directory names::
+
+    ckpt_dir/<step>/train_state.pt      step, model state_dict (fp32 params
+                                        and BN buffers), optimizer and
+                                        schedule state_dicts, generator state
+    ckpt_dir/<step>/data_state.bin      the data stream's position (bytes)
+    ckpt_dir/best/<step>/train_state.pt the state with the best eval metric
+    ckpt_dir/best/best_metric.json      {"metric", "metric_name", "step"}
+
+Each step dir is written under a temporary name and renamed into place,
+so a cut run leaves no half step dir; ``torch.load`` reads them with
+``weights_only=True``. The JAX package's orbax directories are not read:
+``orbax.checkpoint`` imports ``jax``, and the port imports none.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import json
+import os
+import shutil
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -316,3 +335,169 @@ def load_torch_checkpoint(module: nn.Module, path: str) -> None:
             f"checkpoint {path} does not fit {type(module).__name__}: "
             f"missing {missing}, unexpected {result.unexpected_keys}"
         )
+
+
+# --------------------------------------------------------------------------
+# training checkpoints
+# --------------------------------------------------------------------------
+
+STATE_FILE = "train_state.pt"
+DATA_STATE_FILE = "data_state.bin"
+_BEST_METRIC_FILE = "best_metric.json"
+
+
+def _steps(directory: str) -> list:
+    """The step numbers under ``directory``, newest first."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted((int(d) for d in os.listdir(directory) if d.isdigit()), reverse=True)
+
+
+def _state_tree(state) -> Dict[str, Any]:
+    return {
+        "step": int(state.step),
+        "model": state.module.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "schedule": state.schedule.state_dict(),
+        "generator": state.generator.get_state(),
+    }
+
+
+def _write_step_dir(directory: str, step: int, tree: Dict[str, Any],
+                    data_state: Optional[bytes] = None) -> str:
+    """``directory/<step>/`` holding ``tree`` (and ``data_state``), written
+    under a temporary name and renamed into place; an existing step dir of
+    the same number is replaced."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, str(step))
+    tmp = os.path.join(directory, f".{step}.partial")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(tree, os.path.join(tmp, STATE_FILE))
+    if data_state is not None:
+        with open(os.path.join(tmp, DATA_STATE_FILE), "wb") as f:
+            f.write(data_state)
+    if os.path.isdir(path):
+        old = os.path.join(directory, f".{step}.old")
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.replace(tmp, path)
+    return path
+
+
+def save_train_state(directory: str, state, keep: int = 3,
+                     data_state: Optional[bytes] = None) -> str:
+    """Save a :class:`~asltpu_torch.train.loop.TrainState` (and, given, the
+    data stream's position, in the same step dir) under
+    ``directory/<step>``, pruning to the newest ``keep`` step dirs."""
+    path = _write_step_dir(directory, int(state.step), _state_tree(state), data_state)
+    if keep > 0:
+        for old in _steps(directory)[keep:]:
+            shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+    return path
+
+
+def _state_file(path: str) -> str:
+    """The train-state file of a step dir, or of the newest step dir under
+    ``path`` (a ``ckpt_dir`` or its ``best/``)."""
+    path = os.path.abspath(path)
+    if not os.path.exists(os.path.join(path, STATE_FILE)):
+        steps = _steps(path)
+        if steps:
+            path = os.path.join(path, str(steps[0]))
+    f = os.path.join(path, STATE_FILE)
+    if not os.path.exists(f):
+        raise FileNotFoundError(
+            f"no port training checkpoint ({STATE_FILE}) at {path}; the JAX package's "
+            "orbax checkpoints are not read: orbax.checkpoint imports jax, and the port "
+            "imports none")
+    return f
+
+
+def _load(path: str) -> Dict[str, Any]:
+    return torch.load(_state_file(path), map_location="cpu", weights_only=True)
+
+
+def try_restore_train_state(directory: str, state):
+    """Resume ``state`` in place from the newest step under ``directory``
+    if there is one (module, optimizer, schedule, generator and step); a
+    fresh run's state is returned unchanged."""
+    if not _steps(directory):
+        return state
+    tree = _load(directory)
+    state.module.load_state_dict(tree["model"])
+    state.optimizer.load_state_dict(tree["optimizer"])
+    state.schedule.load_state_dict(tree["schedule"])
+    state.generator.set_state(tree["generator"])
+    state.step = tree["step"]
+    return state
+
+
+def load_trained_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The model ``state_dict`` (fp32) of a port training checkpoint: a step
+    dir, a ``ckpt_dir`` (its newest step) or its ``best/``."""
+    return _load(path)["model"]
+
+
+def save_best_state(directory: str, state, metric: float,
+                    metric_name: str = "eval_top1") -> bool:
+    """Keep ``directory/best/`` as the train state with the highest
+    ``metric`` so far, the metric recorded beside it. Only a strictly
+    greater metric replaces it (a tie keeps the earlier one), compared with
+    the record on disk, so a resumed run never replaces a better state
+    saved before the restart. Returns whether this state became the best."""
+    best_dir = os.path.join(directory, "best")
+    prev = load_best_metric(directory)
+    if prev is not None and prev["metric"] >= metric:
+        return False
+    step = int(state.step)
+    _write_step_dir(best_dir, step, _state_tree(state))
+    for other in _steps(best_dir):
+        if other != step:
+            shutil.rmtree(os.path.join(best_dir, str(other)), ignore_errors=True)
+    # Write, then rename: a cut run leaves the old record or none.
+    tmp = os.path.join(best_dir, _BEST_METRIC_FILE + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump({"metric": float(metric), "metric_name": metric_name, "step": step}, f)
+    os.replace(tmp, os.path.join(best_dir, _BEST_METRIC_FILE))
+    return True
+
+
+def load_best_metric(directory: str) -> Optional[Dict[str, Any]]:
+    """The ``{"metric", "metric_name", "step"}`` record of
+    ``directory/best/``, or None where there is no readable one."""
+    try:
+        with open(os.path.join(directory, "best", _BEST_METRIC_FILE)) as f:
+            rec = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(rec, dict) or not isinstance(rec.get("metric"), (int, float)):
+        return None
+    return rec
+
+
+def save_data_state(directory: str, step: int, state_bytes: bytes) -> None:
+    """Write the data stream's position into ``directory/<step>/`` (made if
+    absent), under a temporary name and then renamed."""
+    step_dir = os.path.join(directory, str(step))
+    os.makedirs(step_dir, exist_ok=True)
+    tmp = os.path.join(step_dir, DATA_STATE_FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(state_bytes)
+    os.replace(tmp, os.path.join(step_dir, DATA_STATE_FILE))
+
+
+def load_data_state(directory: str) -> Optional[bytes]:
+    """The data stream's position saved with the newest step, if any (an
+    older step's would not match the train state a resume restores)."""
+    steps = _steps(directory)
+    if not steps:
+        return None
+    p = os.path.join(directory, str(steps[0]), DATA_STATE_FILE)
+    if not os.path.exists(p):
+        return None
+    with open(p, "rb") as f:
+        return f.read()

@@ -1,11 +1,24 @@
 """Shared building blocks: ``ConvBN``, seeded initialisation, the cast to
-the compute dtype, and merging time into the batch. Counterpart of
-``asltpu/models/common.py``."""
+the compute dtype, merging time into the batch, and the training semantics
+of the shared parts: dropout from an explicit generator and BatchNorm in
+training mode as flax computes it. Counterpart of
+``asltpu/models/common.py``.
+
+The models that train (``I3D``, ``PoseBiLSTM``) take ``train`` and a
+``generator`` as arguments of ``forward``, as the JAX modules take
+``train`` and a dropout key; ``nn.Module.training`` plays no part. Their
+compute dtype is their own (``dtype``), apart from the dtype of their
+parameters: fp32 masters are cast inside each layer, so the gradient
+reaches the fp32 parameter, and a model cast ahead by
+:func:`cast_for_compute` pays a no-op cast.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Iterable, List, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +34,67 @@ NORMS = (nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)
 
 
 relu6 = nn.ReLU6
+
+# Set while a rematerialised block runs its forward a second time in the
+# backward pass: the running statistics were updated by the first run.
+_STATS_FROZEN: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "asltpu_torch_stats_frozen", default=False)
+
+
+@contextlib.contextmanager
+def frozen_running_stats() -> Iterator[None]:
+    """:func:`batch_norm` in training mode leaves the running statistics
+    alone inside this context (the recompute of a checkpointed block; flax's
+    remat is functional and keeps the one update of the forward)."""
+    token = _STATS_FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _STATS_FROZEN.reset(token)
+
+
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+               train: bool) -> torch.Tensor:
+    """``bn`` applied as flax's ``BatchNorm`` with ``use_running_average=not
+    train``. Statistics and the normalisation are fp32 whatever the input's
+    dtype, and the output is rounded once to it. In training the batch's
+    mean and **biased** variance normalise the input and update the running
+    statistics (``stat ← (1 − m)·stat + m·batch``, torch momentum m = 1 −
+    flax momentum); torch's ``BatchNorm`` would update the variance with the
+    unbiased one, n/(n − 1) larger. ``bn.training`` plays no part."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            False, 0.0, bn.eps)
+    out, mean, invstd = torch.ops.aten.native_batch_norm(
+        x, bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
+    if not _STATS_FROZEN.get():
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(invstd.pow(-2) - bn.eps, alpha=m)
+    return out
+
+
+class Dropout(nn.Module):
+    """Dropout whose mask is drawn with ``torch.rand(..., generator=g)``
+    from the generator the caller passes (the train state's), as flax's
+    ``Dropout`` draws from the step's key: kept values are divided by
+    1 − p in the input's dtype, dropped ones are 0. Identity unless
+    ``train``."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 class ConvBN(nn.Sequential):

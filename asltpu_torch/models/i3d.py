@@ -16,17 +16,27 @@ averages over space in the compute dtype, averages adjacent time steps,
 applies the fp32 ``logits`` per step and averages the logits over time.
 The network runs NCDHW in ``torch.channels_last_3d`` memory, which the
 NDHWC clip already is after ``permute(0, 4, 1, 2, 3)``.
+
+Training (``forward(clip, train=True, generator=g)``), as the JAX module
+trains: BatchNorm on the batch's statistics with flax's update of the
+running ones (:func:`asltpu_torch.models.common.batch_norm`), dropout
+before ``logits`` from ``g``, and with ``remat`` each Inception block
+rematerialised (``torch.utils.checkpoint``, non-reentrant) with its
+recompute kept from updating the running statistics a second time. The
+compute dtype is ``dtype``; fp32 master weights are cast inside each conv.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from asltpu_torch.models.common import pad_same
+from asltpu_torch.models.common import Dropout, batch_norm, frozen_running_stats, pad_same
 from asltpu_torch.ops.stem_s2d import (
     STEM_KERNEL,
     STEM_STRIDE,
@@ -79,13 +89,16 @@ class Unit3D(nn.Module):
         self.conv3d = nn.Conv3d(in_ch, out_ch, kernel, stride, bias=False)
         self.bn = nn.BatchNorm3d(out_ch, eps=1e-3, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """In the dtype of ``x``: the conv's weight is cast to it (a no-op
+        for weights cast ahead), BN normalises in fp32 and rounds once."""
+        w = self.conv3d.weight.to(x.dtype)
         if (self.kernel, self.stride) == (STEM_KERNEL, STEM_STRIDE):
-            x = stem_conv(x, self.conv3d.weight)
+            x = stem_conv(x, w)
         else:
             x, padding = pad_same(x, self.kernel, self.stride)
-            x = F.conv3d(x, self.conv3d.weight, None, self.stride, padding)
-        return F.relu(self.bn(x))
+            x = F.conv3d(x, w, None, self.stride, padding)
+        return F.relu(batch_norm(self.bn, x, train))
 
 
 class InceptionBlock(nn.Module):
@@ -103,10 +116,11 @@ class InceptionBlock(nn.Module):
         self.b3b = Unit3D(in_ch, b3b)
         self.out_channels = b0 + b1b + b2b + b3b
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         pooled = max_pool_same(x, (3, 3, 3), (1, 1, 1))
-        return torch.cat([self.b0(x), self.b1b(self.b1a(x)), self.b2b(self.b2a(x)),
-                          self.b3b(pooled)], dim=1)
+        return torch.cat([self.b0(x, train), self.b1b(self.b1a(x, train), train),
+                          self.b2b(self.b2a(x, train), train), self.b3b(pooled, train)],
+                         dim=1)
 
 
 class Logits(nn.Module):
@@ -127,12 +141,15 @@ class I3D(nn.Module):
 
     :meth:`backbone` (stem through ``Mixed_5c``) and :meth:`classify` (the
     pooling and the logits) split :meth:`forward` in two. The network
-    computes in the dtype of its conv weights (bf16 under
-    ``asltpu_torch.api.load_model``'s default); BN and ``logits`` stay
-    fp32."""
+    computes in ``dtype`` (None: the dtype of its conv weights, as a model
+    cast by ``cast_for_compute`` has them); BN and ``logits`` stay fp32.
+    ``remat`` rematerialises each Inception block in training, as the JAX
+    module's ``nn.remat`` does."""
 
-    def __init__(self, num_classes: int = 2000, dropout: float = 0.5):
+    def __init__(self, num_classes: int = 2000, dropout: float = 0.5,
+                 remat: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.remat, self.dtype = remat, dtype
         self.Conv3d_1a_7x7 = Unit3D(3, 64, STEM_KERNEL, STEM_STRIDE)
         self.Conv3d_2b_1x1 = Unit3D(64, 64)
         self.Conv3d_2c_3x3 = Unit3D(64, 192, (3, 3, 3))
@@ -141,33 +158,46 @@ class I3D(nn.Module):
             block = InceptionBlock(in_ch, ch)
             self.add_module(name, block)
             in_ch = block.out_channels
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.logits = Logits(in_ch, num_classes)
 
-    def backbone(self, clip: torch.Tensor) -> torch.Tensor:
+    def _block(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
+        block = getattr(self, name)
+        if not (train and self.remat):
+            return block(x, train)
+        # Nothing in a block draws random numbers, so no RNG state is kept;
+        # the recompute runs with the running statistics frozen.
+        return checkpoint(block, x, train, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_running_stats()))
+
+    def backbone(self, clip: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, T, H, W, 3] → features [B, 1024, T', H', W'] (NCDHW view)."""
-        x = clip.permute(0, 4, 1, 2, 3).to(self.Conv3d_1a_7x7.conv3d.weight.dtype)
-        x = self.Conv3d_1a_7x7(x)
+        dtype = self.dtype or self.Conv3d_1a_7x7.conv3d.weight.dtype
+        x = clip.permute(0, 4, 1, 2, 3).to(dtype)
+        x = self.Conv3d_1a_7x7(x, train)
         x = max_pool_same(x, (1, 3, 3), (1, 2, 2))
-        x = self.Conv3d_2c_3x3(self.Conv3d_2b_1x1(x))
+        x = self.Conv3d_2c_3x3(self.Conv3d_2b_1x1(x, train), train)
         x = max_pool_same(x, (1, 3, 3), (1, 2, 2))
         for name, _ in _MIXED:
-            x = getattr(self, name)(x)
+            x = self._block(name, x, train)
             if name == "Mixed_3c":
                 x = max_pool_same(x, (3, 3, 3), (2, 2, 2))
             elif name == "Mixed_4f":
                 x = F.max_pool3d(x, (2, 2, 2), (2, 2, 2))  # VALID
         return x
 
-    def classify(self, feats: torch.Tensor) -> torch.Tensor:
+    def classify(self, feats: torch.Tensor, train: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, 1024, T', H', W'] → logits: the spatial mean in the compute
         dtype; where T' > 1 the mean of each pair of adjacent steps (the
-        temporal half of pytorch-i3d's AvgPool3d((2, 7, 7))); the fp32
-        ``logits`` per step; their mean over time."""
+        temporal half of pytorch-i3d's AvgPool3d((2, 7, 7))); dropout in
+        training; the fp32 ``logits`` per step; their mean over time."""
         x = feats.mean(dim=(3, 4)).transpose(1, 2)  # [B, T', 1024]
         if x.shape[1] > 1:
             x = 0.5 * (x[:, :-1] + x[:, 1:])
-        return self.logits(self.dropout(x)).mean(dim=1)
+        return self.logits(self.dropout(x, train, generator)).mean(dim=1)
 
-    def forward(self, clip: torch.Tensor) -> torch.Tensor:
-        return self.classify(self.backbone(clip))
+    def forward(self, clip: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.classify(self.backbone(clip, train), train, generator)

@@ -1,0 +1,301 @@
+"""The training loop: one train step (preprocess → forward → label-smoothed
+cross-entropy → backward → global-norm clip → AdamW with warmup-cosine)
+and the host loop around it (checkpoints with pruning, resume with the
+data stream's position, fault injection, periodic eval, keep-best).
+Counterpart of ``asltpu/train/loop.py`` without its mesh (data and tensor
+parallelism are a later slice).
+
+The train state owns the module (fp32 parameters and BN buffers, on its
+device), the optimizer with its schedule, and the ``torch.Generator`` that
+dropout and augmentation draw from; a checkpoint saves all four, so a
+resumed run continues the one that was cut. The step mutates the state in
+place and returns it with its metrics, as 0-d tensors on the device (the
+loop reads them only when it logs).
+
+On a CUDA batch with ``pp_cfg.use_pallas`` the step's preprocess launches
+the hand-written rgb kernel (``asltpu_torch.ops.preprocess_kernels``) on the
+uint8 batch before the autograd graph begins: its output needs no
+gradient.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from asltpu_torch.config import PreprocessConfig, TrainConfig
+from asltpu_torch.ops.preprocess import preprocess_clip
+
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    module: nn.Module
+    optimizer: torch.optim.AdamW
+    schedule: torch.optim.lr_scheduler.LambdaLR
+    generator: torch.Generator
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.module.parameters()).device
+
+
+class FaultInjected(RuntimeError):
+    """Raised by the train loop at ``TrainConfig.fault_inject_step`` to test
+    checkpoint-resume."""
+
+
+def lr_factor(cfg: TrainConfig) -> Callable[[int], float]:
+    """optax's ``warmup_cosine_decay_schedule(init_value=0, peak_value=lr,
+    warmup_steps, decay_steps=max(num_steps, warmup_steps + 1))`` over the
+    peak: linear from 0 over the warmup, then a cosine to 0 at
+    ``decay_steps``; read at the count of updates made before this one, so
+    the first update has lr 0."""
+    warm = cfg.warmup_steps
+    cosine_steps = max(cfg.num_steps, warm + 1) - warm
+
+    def factor(count: int) -> float:
+        if count < warm:
+            return count / warm
+        c = min(count - warm, cosine_steps)
+        return 0.5 * (1.0 + math.cos(math.pi * c / cosine_steps))
+
+    return factor
+
+
+def make_optimizer(params: Iterable[torch.Tensor], cfg: TrainConfig
+                   ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
+    """AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on every
+    parameter, BN scale and bias included, as optax's ``adamw`` with no
+    mask) under :func:`lr_factor`. The global-norm clip that optax chains
+    before it is :func:`clip_by_global_norm`, applied by the step."""
+    opt = torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_factor(cfg))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``, in place: every gradient scaled by
+    ``max_norm / ‖g‖`` where the global norm ``‖g‖ ≥ max_norm``, untouched
+    below it (no epsilon in the denominator, unlike
+    ``torch.nn.utils.clip_grad_norm_``). Returns ‖g‖ before the clip, as a
+    0-d tensor, without waiting for the device."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.clamp(max_norm / norm, max=1.0))
+    return norm
+
+
+def create_train_state(module: nn.Module, cfg: TrainConfig, seed: int = 0) -> TrainState:
+    """The initial state of ``module`` (fp32 parameters on their device, as
+    ``asltpu_torch.api.build_trainable`` makes it): step 0, fresh optimizer
+    and schedule, and a generator on the module's device seeded with
+    ``seed``."""
+    params = list(module.parameters())
+    bad = sorted({str(p.dtype) for p in params if p.dtype != torch.float32})
+    if bad:
+        raise ValueError(f"training needs fp32 master parameters, found {bad}: build the "
+                         "module with asltpu_torch.api.build_trainable, not load_model")
+    opt, schedule = make_optimizer(params, cfg)
+    gen = torch.Generator(params[0].device).manual_seed(seed)
+    return TrainState(step=0, module=module, optimizer=opt, schedule=schedule, generator=gen)
+
+
+def softmax_ce(logits: torch.Tensor, labels: torch.Tensor, smoothing: float) -> torch.Tensor:
+    """Mean cross-entropy in fp32 on the logits, against one-hot labels
+    smoothed to ``(1 − s)·onehot + s/C`` (a label −1 is a zero row, as
+    ``jax.nn.one_hot`` makes it)."""
+    num_classes = logits.shape[-1]
+    onehot = (labels.long()[:, None] == torch.arange(num_classes, device=logits.device)).float()
+    if smoothing > 0:
+        onehot = onehot * (1.0 - smoothing) + smoothing / num_classes
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -(onehot * logp).sum(dim=-1).mean()
+
+
+def _check_augment(pp_cfg: Optional[PreprocessConfig], augment) -> bool:
+    """Whether the step augments; yuv420 staging with augment raises."""
+    enabled = augment is not None and getattr(augment, "enabled", False)
+    if pp_cfg is not None and pp_cfg.staging_format == "yuv420" and enabled:
+        raise ValueError(
+            "yuv420 staging is an inference/serving wire optimization; "
+            "train-time augmentation needs RGB staged frames (and spatial "
+            "slack) — use staging_format='rgb' for training with augment"
+        )
+    return enabled
+
+
+def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = None,
+                 augment=None) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
+                                           Tuple[TrainState, Metrics]]:
+    """The train step ``(state, batch_in, labels) → (state, metrics)`` on
+    tensors already on the state's device. With ``pp_cfg`` it takes staged
+    uint8 frames and preprocesses them (the augmented variant,
+    :mod:`asltpu_torch.ops.augment`, when ``augment`` is an enabled
+    ``AugmentConfig``), else it takes the model's input as is. Metrics:
+    ``loss``, ``top1`` (share of the batch) and ``grad_norm`` (before the
+    clip)."""
+    augmenting = _check_augment(pp_cfg, augment)
+
+    def step_fn(state: TrainState, batch_in: torch.Tensor, labels: torch.Tensor):
+        module, gen = state.module, state.generator
+        with torch.no_grad():
+            if pp_cfg is None:
+                clip = batch_in
+            elif augmenting:
+                from asltpu_torch.ops.augment import augment_preprocess_clip
+
+                clip = augment_preprocess_clip(gen, batch_in, pp_cfg, augment)
+            else:
+                clip = preprocess_clip(batch_in, pp_cfg)
+        logits = module(clip, train=True, generator=gen)
+        loss = softmax_ce(logits, labels, train_cfg.label_smoothing)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in module.parameters() if p.grad is not None]
+        grad_norm = clip_by_global_norm(grads, train_cfg.grad_clip_norm)
+        state.optimizer.step()
+        state.schedule.step()
+        state.step += 1
+        with torch.no_grad():
+            top1 = (logits.argmax(-1) == labels).float().mean()
+        return state, {"loss": loss.detach(), "top1": top1, "grad_norm": grad_norm.detach()}
+
+    return step_fn
+
+
+def _on(device: torch.device, x) -> torch.Tensor:
+    """A host array or a tensor → a tensor on ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
+    return t.to(device, non_blocking=True)
+
+
+def make_train_step(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = None,
+                    augment=None):
+    """:func:`make_step_fn`'s step for batches from anywhere: numpy arrays
+    or tensors on another device are moved to the state's device first."""
+    step_fn = make_step_fn(train_cfg, pp_cfg, augment)
+
+    def train_step(state: TrainState, batch_in, labels):
+        dev = state.device
+        return step_fn(state, _on(dev, batch_in), _on(dev, labels))
+
+    return train_step
+
+
+def make_eval_step(pp_cfg: Optional[PreprocessConfig] = None):
+    """``(state, batch_in, labels) → (top-1 hits, top-5 hits)`` as 0-d int
+    tensors: the module in inference (running statistics, no dropout) on the
+    preprocessed batch. A pad row with label −1 matches no class, so it
+    adds no hit."""
+    def eval_fn(state: TrainState, batch_in, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = state.device
+        batch_in, labels = _on(dev, batch_in), _on(dev, labels).long()
+        with torch.no_grad():
+            clip = preprocess_clip(batch_in, pp_cfg) if pp_cfg is not None else batch_in
+            logits = state.module(clip, train=False)
+            top1 = (logits.argmax(-1) == labels).sum()
+            k = min(5, logits.shape[-1])
+            top5 = (logits.topk(k, dim=-1).indices == labels[:, None]).any(-1).sum()
+        return top1, top5
+
+    return eval_fn
+
+
+def train(
+    module: nn.Module,
+    train_cfg: TrainConfig,
+    batches: Iterable[Tuple[Any, Any]],
+    pp_cfg: Optional[PreprocessConfig] = None,
+    state: Optional[TrainState] = None,
+    metric_writer: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    augment=None,
+    eval_batches: Optional[Callable[[], Iterable[Tuple[Any, Any]]]] = None,
+    resumable_iter=None,
+) -> TrainState:
+    """Run the training loop over an iterable of ``(batch_in, labels)``
+    (numpy arrays or tensors).
+
+    Without ``state`` it starts from ``module`` with
+    :func:`create_train_state` (``train_cfg.seed``) and resumes from the
+    latest checkpoint under ``train_cfg.ckpt_dir`` where there is one. Every
+    ``ckpt_every`` steps it saves the state (pruned to ``ckpt_keep``) and,
+    with ``resumable_iter`` (the
+    :class:`~asltpu_torch.data.loader.ResumableIterator` under
+    ``batches``), the data stream's position, so a resumed run continues the
+    stream. ``eval_batches`` (a zero-argument callable yielding batches)
+    runs every ``eval_every`` steps and at the end, and with ``keep_best``
+    keeps ``ckpt_dir/best/``. At ``fault_inject_step`` it raises
+    :class:`FaultInjected`. ``batches.close()``, where it has one, runs on
+    every exit.
+    """
+    from asltpu_torch import ckpt as _ckpt
+
+    if state is None:
+        state = create_train_state(module, train_cfg, train_cfg.seed)
+        state = _ckpt.try_restore_train_state(train_cfg.ckpt_dir, state)
+    elif state.module is not module:
+        raise ValueError("state holds another module than the one given")
+    step_fn = make_train_step(train_cfg, pp_cfg, augment)
+    eval_fn = make_eval_step(pp_cfg) if eval_batches is not None else None
+
+    def run_eval(step: int) -> Dict[str, float]:
+        n = top1 = top5 = 0
+        for batch_in, labels in eval_batches():
+            t1, t5 = eval_fn(state, batch_in, labels)
+            top1 += int(t1)
+            top5 += int(t5)
+            # Only real rows count: pad rows carry label -1.
+            n += int((torch.as_tensor(labels) >= 0).sum())
+        metrics = {"eval_top1": top1 / max(n, 1), "eval_top5": top5 / max(n, 1),
+                   "eval_clips": float(n)}
+        if train_cfg.keep_best and train_cfg.ckpt_dir:
+            _ckpt.save_best_state(train_cfg.ckpt_dir, state, metrics["eval_top1"])
+        if metric_writer:
+            metric_writer(step, metrics)
+        return metrics
+
+    start = state.step
+    last_eval_step = -1
+    t0 = time.perf_counter()
+    try:
+        for i, (batch_in, labels) in enumerate(batches):
+            step = start + i
+            if step >= train_cfg.num_steps:
+                break
+            if step == train_cfg.fault_inject_step:
+                raise FaultInjected(f"injected fault at step {step}")
+            state, metrics = step_fn(state, batch_in, labels)
+            if (step + 1) % train_cfg.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["steps_per_sec"] = train_cfg.log_every / (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                if metric_writer:
+                    metric_writer(step + 1, m)
+            if eval_fn is not None and (step + 1) % train_cfg.eval_every == 0:
+                run_eval(step + 1)
+                last_eval_step = step + 1
+            if (step + 1) % train_cfg.ckpt_every == 0:
+                # i + 1 batches consumed since this call began.
+                data_state = (resumable_iter.state_for(i + 1)
+                              if resumable_iter is not None else None)
+                _ckpt.save_train_state(train_cfg.ckpt_dir, state, keep=train_cfg.ckpt_keep,
+                                       data_state=data_state)
+    finally:
+        # An early exit must stop a Prefetcher's thread, or it stays blocked
+        # holding host and device batches for the life of the process.
+        close = getattr(batches, "close", None)
+        if callable(close):
+            close()
+    # The final eval, unless the periodic one just ran at this step.
+    if eval_fn is not None and state.step != last_eval_step:
+        run_eval(state.step)
+    return state

@@ -93,11 +93,32 @@ phase printing one JSON line:
    pose-only ``stream_predict`` over a
    ``LandmarkStore.for_path`` gives ``predict``'s logits; device-only
    clips/s by CUDA events. The pose path runs no preprocess kernel.
-14. bench — ``asltpu_torch.benchmark`` in this process over its six
-   (family, lane) cells with a short stream; its result line.
+14. bench — ``asltpu_torch.benchmark`` in this process over its seven
+   (family, lane) cells with a short stream (the ``i3d:train`` cell in its
+   two configurations); its result line.
+15. train (run after the two_stream lane) — I3D fine-tuning at full
+   width: ``build_trainable("i3d")`` (2000 classes, 64 frames of 256²
+   staged, crop 224, bf16 compute with fp32 masters, remat on) at
+   ``TrainConfig``'s batch of 8. The first step (lr 0) against a twin with
+   ``use_pallas=False`` (loss and grad_norm) and against remat off (the
+   same loss, running statistics updated once), with the peak memory of
+   each; the fp32 step at the CPU test's size on the card against the CPU;
+   ``train()`` for 10 steps on one fixed batch (warmup 2), the loss must
+   fall, then its eval (2 batches) and keep-best; a run cut by an injected
+   fault after its step-4 checkpoint resumed in this process: the step
+   count, the batches, the generator's state and the lr equal the
+   uninterrupted run's, its losses within three times the spread of the
+   runs that were not cut. The rgb kernel must launch once in each
+   train and each eval step. Checkpoints go to a temporary directory. The
+   step's timings come from the bench phase's ``i3d:train`` cell (batch 8,
+   remat on): ms a step by CUDA events, train clips/s, peak GB, GFLOP per
+   clip of forward + backward (recompute apart) and MFU, each printed on a
+   line of its own after the bench's result line.
 
 The kernels' launch counts are read per path: each lane (and the fused
-path) sets them to 0 just before its ``predict`` and reads them just after.
+path) sets them to 0 just before its ``predict`` and reads them just after;
+the train phase sets them to 0 just before its ``train()`` run and reads
+its train steps' launches when the run's eval begins, its eval's after it.
 Then the card's ``nvidia-smi`` line, the kernels' JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero; on
 a host without a CUDA device it exits nonzero before doing anything. At the
@@ -470,13 +491,21 @@ def calibrate_bn(module, inputs, forward=None) -> None:
     MobileNetV2, and the full-width features come out near 1e-8 and alike
     for every clip; I3D's grow instead; calibrated, every layer's output is
     of order 1."""
+    import inspect
+
     bns = [m for m in module.modules()
            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     for m in bns:
         m.momentum = 1.0
     module.train()
+    fn = forward or module
     with torch.no_grad():
-        (forward or module)(inputs)
+        # I3D takes ``train`` as an argument (its BN ignores the module's
+        # mode); the 2D backbones' BN follows the mode.
+        if "train" in inspect.signature(fn).parameters:
+            fn(inputs, train=True)
+        else:
+            fn(inputs)
     module.eval()
     for m in bns:
         m.momentum = 0.1
@@ -1102,19 +1131,345 @@ def phase_pose_lane():
     torch.cuda.empty_cache()
 
 
+# The train phase: I3D at full width (TrainConfig's batch, bf16 compute with
+# fp32 masters, remat on), random weights from SEED.
+TRAIN_BATCH = 8
+# Kernel vs plain preprocess on the first step: the bf16 rgb kernel is
+# bit-exact to the plain version at this shape (phase kernels), so the two
+# steps differ only by cuDNN's backward, whose weight gradients are not
+# bit-deterministic: loss within 1e-3 and grad_norm within 1e-2 relative.
+TRAIN_PLAIN_LOSS_RTOL, TRAIN_PLAIN_GRAD_RTOL = 1e-3, 1e-2
+# Remat on vs off: the same loss (1e-3 relative) and the same running
+# statistics within 1e-3 of each tensor's largest entry; updating them a
+# second time moves them by a tenth of (batch − running), far outside.
+TRAIN_REMAT_RTOL = 1e-3
+# Card vs CPU: the fp32 step at the CPU test's size (TF32 off, fp32
+# preprocess out, dropout 0), the first of a warmup (lr 0). The loss, the
+# parameters and the running statistics within 1e-4 relative (global norm).
+# The gradient (Adam's first moment over 0.1, no clip) is held to the CPU's
+# fp64 one: the card's fp32 gradient no farther from it than twice the
+# CPU's fp32 gradient, and 1e-3. At this size the deepest BatchNorms see 16
+# values a channel and amplify rounding, by an amount that depends on the
+# weights (the phase prints the CPU's distance; 0.63% at
+# tests/test_torch_train_i3d.py's weights), so no fixed bound fits. After
+# an update with lr > 0 the parameters are no test: Adam's first update is
+# lr·sign(g), and entries whose gradient is rounding noise flip sign.
+TRAIN_CPU_SIZE = {"num_classes": 7, "preprocess": {
+    "num_frames": 16, "staging_size": (40, 48), "resize_short": 36, "crop": 32,
+    "out_dtype": "float32"}}
+TRAIN_CPU_RTOL, TRAIN_CPU_GRAD_SLACK = 1e-4, 1e-3
+# Resume: the losses of the resumed steps against the uninterrupted run's,
+# within three times the largest gap between the runs that were not cut
+# (two whole runs and the cut run before its fault): cuDNN's backward and
+# max-pool's are not bit-deterministic, and Adam's sign-like updates carry
+# the gap from step to step. The step, the batches taken, the generator's
+# state and the lr must be exact.
+TRAIN_RESUME_SPREADS = 3
+
+
+class SeededBatches:
+    """A stream of staged uint8 batches and labels made on the card, batch
+    i from a generator seeded ``seed · 1000 + i``, with the position as its
+    state (``get_state``/``set_state``, as the train loader's), so
+    ``ResumableIterator`` and a checkpoint can carry it."""
+
+    def __init__(self, shape, num_classes, device, seed=SEED):
+        self.shape, self.num_classes, self.device, self.seed = shape, num_classes, device, seed
+        self.i = 0
+        self.taken = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        gen = torch.Generator(self.device).manual_seed(self.seed * 1000 + self.i)
+        x = torch.randint(0, 256, self.shape, dtype=torch.uint8, device=self.device,
+                          generator=gen)
+        y = torch.randint(0, self.num_classes, (self.shape[0],), device=self.device,
+                          generator=gen)
+        self.taken.append(self.i)
+        self.i += 1
+        return x, y
+
+    def get_state(self) -> bytes:
+        return str(self.i).encode()
+
+    def set_state(self, state: bytes) -> None:
+        self.i = int(state)
+
+
+def _global_rel(a, b) -> float:
+    """‖a − b‖ over ‖b‖, over the floating tensors of ``b`` (a dict of
+    tensors) and the same keys of ``a``."""
+    keys = [k for k, t in b.items() if t.is_floating_point()]
+    num = sum(float(((a[k].double().cpu() - b[k].double().cpu()) ** 2).sum()) for k in keys)
+    return (num / sum(float((b[k].double().cpu() ** 2).sum()) for k in keys)) ** 0.5
+
+
+def _only(sd, word, keep):
+    """The entries of ``sd`` whose key holds ``word`` (``keep``) or not."""
+    return {k: t for k, t in sd.items() if (word in k) == keep}
+
+
+def _train_card_vs_cpu():
+    """The fp32 train step at the CPU test's size on the card and on the
+    CPU (then the CPU's fp64 gradient), from the same seeded weights and
+    batch (module constants above)."""
+    from asltpu_torch import api
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.ops.preprocess import preprocess_clip
+    from asltpu_torch.train import loop
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, warmup_steps=1, num_steps=10,
+                       grad_clip_norm=1e30)
+    rng = np.random.default_rng(SEED + 12)
+    pp = TRAIN_CPU_SIZE["preprocess"]
+    frames = rng.integers(0, 256, (TRAIN_BATCH, pp["num_frames"], *pp["staging_size"], 3),
+                          np.uint8)
+    labels = rng.integers(0, TRAIN_CPU_SIZE["num_classes"], TRAIN_BATCH).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        # Dropout 0: the card's generator draws other masks than the CPU's.
+        model = api.build_trainable("i3d", seed=SEED, device=dev, compute_dtype="float32",
+                                    dropout=0.0, **TRAIN_CPU_SIZE)
+        state = loop.create_train_state(model.module, tcfg, SEED)
+        state, metrics = loop.make_train_step(tcfg, model.cfg.preprocess)(state, frames, labels)
+        grads = {n: (state.optimizer.state[p]["exp_avg"] / 0.1).cpu()
+                 for n, p in model.module.named_parameters()}
+        out[dev] = (float(metrics["loss"]), {k: t.detach().cpu() for k, t in
+                                             model.module.state_dict().items()}, grads)
+    m64 = api.build_trainable("i3d", seed=SEED, device="cpu", compute_dtype="float64",
+                              dropout=0.0, **TRAIN_CPU_SIZE)
+    m64 = m64.module.double()
+    pp_cfg = api.get_config("i3d", **TRAIN_CPU_SIZE).preprocess
+    clip = preprocess_clip(torch.from_numpy(frames), pp_cfg).double()
+    loss64 = loop.softmax_ce(m64(clip, train=True), torch.from_numpy(labels),
+                             tcfg.label_smoothing)
+    g64 = dict(zip([n for n, _ in m64.named_parameters()],
+                   torch.autograd.grad(loss64, list(m64.parameters()))))
+    (card_loss, card_sd, card_g), (cpu_loss, cpu_sd, cpu_g) = out["cuda"], out["cpu"]
+    result = {"size": TRAIN_CPU_SIZE, "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+              "params_rel_err": _global_rel(card_sd, _only(cpu_sd, "running", False)),
+              "running_stats_rel_err": _global_rel(card_sd, _only(cpu_sd, "running", True)),
+              "grad_rel_err_vs_fp64": _global_rel(card_g, g64),
+              "cpu_grad_rel_err_vs_fp64": _global_rel(cpu_g, g64),
+              "grad_rel_err_vs_cpu": _global_rel(card_g, cpu_g),
+              "rtol": TRAIN_CPU_RTOL}
+    result["grad_bound"] = 2 * result["cpu_grad_rel_err_vs_fp64"] + TRAIN_CPU_GRAD_SLACK
+    if (max(result["loss_rel_err"], result["params_rel_err"], result["running_stats_rel_err"])
+            > TRAIN_CPU_RTOL or result["grad_rel_err_vs_fp64"] > result["grad_bound"]):
+        raise AssertionError(f"train step on the card vs the CPU: {result}")
+    return result
+
+
+def _first_steps(batch, labels):
+    """One train step (the first of a warmup: lr 0) from the same seeded
+    weights on the same batch: remat on with the rgb kernel (the main
+    configuration), remat on with the plain preprocess, remat off with the
+    kernel. Returns {name: (loss, grad_norm, state_dict, peak GB)}."""
+    from asltpu_torch import api
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.train import loop
+
+    tcfg = TrainConfig()
+    out = {}
+    for name, over in (("kernel", {}), ("plain", {"preprocess": {"use_pallas": False}}),
+                       ("no_remat", {"remat": False})):
+        model = api.build_trainable("i3d", seed=SEED, **over)
+        state = loop.create_train_state(model.module, tcfg, SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics = loop.make_step_fn(tcfg, model.cfg.preprocess)(state, batch, labels)
+        torch.cuda.synchronize()
+        out[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                     {k: t.detach().clone() for k, t in model.module.state_dict().items()},
+                     torch.cuda.max_memory_allocated() / 1e9)
+        del model, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_run(ckdir, num_steps, fault=-1):
+    """``train()`` (warmup 2, a checkpoint every 2 steps) over a
+    :class:`SeededBatches` stream, resumed with its data state where
+    ``ckdir`` holds one: returns (the step, generator state and lr at the
+    end, or None after the injected fault; losses by step; the batches
+    taken)."""
+    from asltpu_torch import api
+    from asltpu_torch import ckpt
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.data.loader import ResumableIterator
+    from asltpu_torch.train import loop
+
+    model = api.build_trainable("i3d", seed=SEED)
+    cfg = model.cfg
+    shape = (TRAIN_BATCH, cfg.preprocess.num_frames, *cfg.preprocess.staged_frame_shape)
+    stream = SeededBatches(shape, cfg.num_classes, model.device)
+    saved = ckpt.load_data_state(ckdir)
+    if saved is not None:
+        stream.set_state(saved)
+    rit = ResumableIterator(stream)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, num_steps=num_steps, warmup_steps=2,
+                       log_every=1, ckpt_every=2, ckpt_dir=ckdir, fault_inject_step=fault)
+    losses = {}
+
+    def writer(step, metrics):
+        if "loss" in metrics:
+            losses[step] = metrics["loss"]
+
+    try:
+        state = loop.train(model.module, tcfg, rit, pp_cfg=cfg.preprocess, metric_writer=writer,
+                           resumable_iter=rit)
+    except loop.FaultInjected:
+        return None, losses, stream.taken
+    return ((state.step, state.generator.get_state(), state.schedule.get_last_lr()),
+            losses, stream.taken)
+
+
+def phase_train():
+    """I3D fine-tuning at full width on the card (module docstring,
+    phase 15). Returns the rgb kernel's launches by path."""
+    from asltpu_torch import api, ckpt
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.ops import preprocess_kernels as k
+    from asltpu_torch.train import loop
+
+    model = api.build_trainable("i3d", seed=SEED)
+    cfg = model.cfg
+    assert (cfg.num_classes, cfg.num_frames, cfg.preprocess.crop, cfg.compute_dtype,
+            cfg.remat) == (2000, 64, 224, "bfloat16", True), cfg
+    assert cfg.preprocess.staged_frame_shape == (256, 256, 3)
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in model.module.parameters())
+    shape = (TRAIN_BATCH, cfg.preprocess.num_frames, *cfg.preprocess.staged_frame_shape)
+    batch, labels = next(SeededBatches(shape, cfg.num_classes, model.device, seed=SEED + 13))
+    del model
+
+    first = _first_steps(batch, labels)
+    (k_loss, k_norm, k_sd, k_peak), (p_loss, p_norm, _, _), (r_loss, _, r_sd, r_peak) = (
+        first["kernel"], first["plain"], first["no_remat"])
+    stats = [key for key in k_sd if "running" in key]
+    remat_stats_err = max(_rel_err(k_sd[key], r_sd[key]) for key in stats)
+    checks = {
+        "loss": k_loss, "grad_norm": k_norm,
+        "loss_rel_err_vs_plain": abs(k_loss - p_loss) / abs(p_loss),
+        "grad_norm_rel_err_vs_plain": abs(k_norm - p_norm) / abs(p_norm),
+        "plain_rtol": [TRAIN_PLAIN_LOSS_RTOL, TRAIN_PLAIN_GRAD_RTOL],
+        "loss_rel_err_remat_vs_not": abs(k_loss - r_loss) / abs(r_loss),
+        "running_stats_rel_err_remat_vs_not": remat_stats_err, "remat_rtol": TRAIN_REMAT_RTOL,
+        "peak_gb_remat": k_peak, "peak_gb_no_remat": r_peak,
+    }
+    del first, k_sd, r_sd
+    if (checks["loss_rel_err_vs_plain"] > TRAIN_PLAIN_LOSS_RTOL
+            or checks["grad_norm_rel_err_vs_plain"] > TRAIN_PLAIN_GRAD_RTOL):
+        raise AssertionError(f"train step: kernel vs plain preprocess disagree: {checks}")
+    if (checks["loss_rel_err_remat_vs_not"] > TRAIN_REMAT_RTOL
+            or remat_stats_err > TRAIN_REMAT_RTOL):
+        raise AssertionError(f"train step: remat on vs off disagree: {checks}")
+    checks["card_vs_cpu"] = _train_card_vs_cpu()
+
+    # The main path: train() for 10 steps on one fixed batch (warmup 2),
+    # then its eval; the kernel's launches counted per path.
+    eval_shape = (TRAIN_BATCH,) + shape[1:]
+    eval_stream = SeededBatches(eval_shape, cfg.num_classes, torch.device("cuda"),
+                                seed=SEED + 14)
+    eval_set = [next(eval_stream) for _ in range(2)]
+    counts = {}
+
+    def eval_batches():
+        counts["before_eval"] = k.preprocess_rgb.launches
+        return eval_set
+
+    fixed = [(batch, labels)] * 10
+    losses = []
+    with tempfile.TemporaryDirectory(prefix="asltpu_torch_train_") as ckdir:
+        learner = api.build_trainable("i3d", seed=SEED)
+        tcfg = TrainConfig(batch_size=TRAIN_BATCH, num_steps=10, warmup_steps=2, log_every=1,
+                           eval_every=10, ckpt_every=10_000, ckpt_dir=ckdir)
+        torch.cuda.synchronize()
+        k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+        state = loop.train(learner.module, tcfg, fixed, pp_cfg=cfg.preprocess,
+                           metric_writer=lambda s, m: losses.append(m.get("loss")),
+                           eval_batches=eval_batches)
+        torch.cuda.synchronize()
+        launches = {"i3d/train": counts["before_eval"],
+                    "i3d/eval": k.preprocess_rgb.launches - counts["before_eval"]}
+        best = ckpt.load_best_metric(ckdir)
+    train_losses = [x for x in losses if x is not None]
+    assert state.step == 10 and launches == {"i3d/train": 10, "i3d/eval": 2}, launches
+    assert k.preprocess_yuv420.launches == 0
+    if not (np.isfinite(train_losses).all() and train_losses[-1] < train_losses[0]):
+        raise AssertionError(f"train: the loss did not fall on a fixed batch: {train_losses}")
+    del state, learner
+
+    # Resume: two uninterrupted runs and the cut run before its fault give
+    # the spread; the run cut at step 5 (after the step-4 checkpoint)
+    # resumes in this process.
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="asltpu_torch_resume_") as root:
+        for name, fault in (("a", -1), ("b", -1), ("cut", 5), ("resumed", -1)):
+            ckdir = os.path.join(root, "cut" if name == "resumed" else name)
+            runs[name] = _train_run(ckdir, 6, fault)
+            torch.cuda.empty_cache()
+    whole = [runs[n][1] for n in ("a", "b", "cut")]
+    spread = max(abs(x[s] - y[s]) for i, x in enumerate(whole) for y in whole[i + 1:]
+                 for s in x if s in y)
+    a, resumed = runs["a"][1], runs["resumed"][1]
+    resume_err = max(abs(resumed[s] - a[s]) for s in resumed)
+    bound = TRAIN_RESUME_SPREADS * spread
+    # The loop pulls one batch more than it runs when it stops.
+    consumed = runs["resumed"][2][:len(resumed)]
+    end, want_end = runs["resumed"][0], runs["a"][0]
+    resume = {"steps_resumed": sorted(resumed), "batches_consumed": consumed,
+              "spread_of_runs_not_cut": spread, "max_loss_err_vs_uninterrupted": resume_err,
+              "bound": bound, "losses_uninterrupted": [a[s] for s in sorted(a)],
+              "losses_cut_then_resumed": [runs["cut"][1][s] for s in sorted(runs["cut"][1])]
+              + [resumed[s] for s in sorted(resumed)],
+              "generator_state_equal": bool(torch.equal(end[1], want_end[1])),
+              "lr": end[2], "lr_uninterrupted": want_end[2]}
+    if (end[0] != 6 or sorted(resumed) != [5, 6] or consumed != [4, 5]
+            or sorted(runs["cut"][1]) != [1, 2, 3, 4, 5] or not resume["generator_state_equal"]
+            or end[2] != want_end[2] or resume_err > bound):
+        raise AssertionError(f"train: resume does not continue the run: {resume}")
+
+    del batch
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "family": "i3d", "input": list(shape), "batch": TRAIN_BATCH,
+          "compute_dtype": cfg.compute_dtype, "param_dtype": "float32", "remat": True,
+          "launches": launches, "first_step": checks, "learning_losses": train_losses,
+          "best": best, "resume": resume})
+    return launches
+
+
 def phase_bench():
-    """The port's bench in this process, over its four cells, with a short
-    stream; every video cell's rgb or yuv420 kernel must have launched."""
+    """The port's bench in this process, over its cells, with a short
+    stream; every video cell's rgb or yuv420 kernel must have launched, and
+    the train cell's once a step. Then the train step's timings, each on a
+    line of its own."""
     from asltpu_torch import benchmark
 
     result = benchmark.run(BENCH_ARGS)
     for cell in result["cells"]:
+        if cell["lane"] == "train":
+            if cell["kernel_launches_per_step"] != 1:
+                raise AssertionError(f"bench i3d/train {cell['config']}: "
+                                     f"{cell['kernel_launches_per_step']} kernel launches a step")
+            continue
         if cell["device_only"]["kernel"] is None:
             continue  # pose_bilstm: no preprocess
         if cell["device_only"]["kernel_launches_per_predict"] < 1:
             raise AssertionError(f"bench {cell['family']}/{cell['lane']}: "
                                  "the preprocess kernel did not launch")
     emit({"phase": "bench", "args": BENCH_ARGS, **result})
+    # The train step's timings, each on a line of its own: the production
+    # configuration (batch 8, remat on) of the bench's i3d/train cell.
+    cell = next(c for c in result["cells"] if c["lane"] == "train" and c["remat"])
+    print(f"train step ms (cuda events, median, batch {cell['batch']}, remat on): "
+          f"{cell['ms_per_step']}", flush=True)
+    print(f"train clips/s: {cell['clips_per_s']}", flush=True)
+    print(f"train peak GB: {cell['peak_mem_gb']}", flush=True)
+    print(f"train GFLOP per clip (forward + backward): {cell['gflops_per_clip']} "
+          f"(remat recompute {cell['recompute_gflops_per_clip']} apart)", flush=True)
+    print(f"train MFU: {cell['mfu']}", flush=True)
     return result
 
 
@@ -1195,10 +1550,11 @@ def _run() -> int:
     i3d = _lane("i3d", "i3d", RGB_LANE, PreprocessConfig().staged_frame_shape)
     fusion = _lane("two_stream", "two_stream", RGB_LANE,
                    PreprocessConfig().staged_frame_shape)
+    train = phase_train()
     rgb_by_path = {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
                    "resnet_transformer/rgb": resnet["preprocess_rgb"],
                    "i3d/rgb": i3d["preprocess_rgb"],
-                   "two_stream/rgb": fusion["preprocess_rgb"]}
+                   "two_stream/rgb": fusion["preprocess_rgb"], **train}
     if min(*rgb_by_path.values(), yuv["preprocess_yuv420"]) < 1:
         raise AssertionError(f"a kernel did not run on its lane: {rgb_by_path}, {yuv}")
     phase_stem()

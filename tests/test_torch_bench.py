@@ -145,3 +145,25 @@ def test_stream_windows():
     assert out["clips_per_s"] == pytest.approx((4.0 + 8 / 3) / 2)
     assert out["fill_s"] == 1.0 and out["clips"] == 20
     assert out["overall_clips_per_s"] == pytest.approx(20 / 6)
+
+
+def test_bench_i3d_train_cell_on_cpu(capsys):
+    """The train cell's two configurations (the JAX bench's, remat off, and
+    the default, remat on) at 8 frames on the CPU: each its own result, the
+    same forward + backward FLOPs per clip, the recompute counted apart (the
+    Inception blocks' forward, so less than a third of the step), no kernel
+    launch on CPU tensors, no MFU off the card."""
+    args = ["--device", "cpu", "--batch", "2", "--frames", "8", "--staging", "40",
+            "--crop", "32", "--cells", "i3d:train"]
+    assert benchmark.main(args) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cells = line["cells"]
+    assert [(c["config"], c["remat"]) for c in cells] == [("jax_bench", False),
+                                                          ("default", True)]
+    for cell in cells:
+        assert cell["family"] == "i3d" and cell["lane"] == "train" and "mfu" not in cell
+        assert cell["input"] == [2, 8, 40, 40, 3] and cell["compute_dtype"] == "bfloat16"
+        assert cell["kernel_launches_per_step"] == 0 and cell["timer"] == "host clock (cpu)"
+        assert cell["steps_per_s"] > 0 and cell["clips_per_s"] == 2 * cell["steps_per_s"]
+        assert 0 < cell["recompute_gflops_per_clip"] < cell["gflops_per_clip"] / 3
+    assert cells[0]["gflops_per_clip"] == cells[1]["gflops_per_clip"]

@@ -402,3 +402,77 @@ def test_batchnorm3d_keeps_bf16_input_in_fp32_on_the_card(card):
     assert got.dtype == torch.bfloat16
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
     assert bool(((got.float() - ref).abs() <= ulp).all())
+
+
+def test_i3d_train_and_eval_steps_on_the_card(card):
+    """The I3D train step at the CPU test's size (16 frames of 40×48, crop
+    32 in fp32, 7 classes, batch 8, fp32 compute, TF32 off, dropout 0: the
+    card's generator draws other masks) on the card against the CPU, from
+    the same weights and batch, as the first step of a warmup (lr 0): the
+    loss, the parameters and the running statistics within 1e-4 relative
+    (global norm); the card's gradient (Adam's first moment) no farther
+    from the CPU's fp64 gradient than twice the CPU's fp32 one, and 1e-3
+    (at this size rounding is amplified; ``chip_smoke.py``, phase train,
+    says by how much); the rgb kernel launches once in the train step and once in the
+    eval step, and BatchNorm in training keeps bf16 input in fp32 with
+    flax's biased variance."""
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.models.common import batch_norm
+    from asltpu_torch.train import loop
+
+    pp = {"num_frames": 16, "staging_size": (40, 48), "resize_short": 36, "crop": 32,
+          "out_dtype": "float32"}
+    tcfg = TrainConfig(batch_size=8, warmup_steps=1, num_steps=10, grad_clip_norm=1e30)
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (8, 16, 40, 48, 3), np.uint8)
+    labels = rng.integers(0, 7, 8).astype(np.int32)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        model = api.build_trainable("i3d", seed=3, device=dev, num_classes=7, dropout=0.0,
+                                    compute_dtype="float32", preprocess=pp)
+        state = loop.create_train_state(model.module, tcfg, seed=3)
+        before = k.preprocess_rgb.launches
+        state, metrics = loop.make_train_step(tcfg, model.cfg.preprocess)(state, frames, labels)
+        loop.make_eval_step(model.cfg.preprocess)(state, frames, labels)
+        if dev.type == "cuda":
+            assert k.preprocess_rgb.launches - before == 2
+        grads = {n: state.optimizer.state[p]["exp_avg"].cpu()
+                 for n, p in model.module.named_parameters()}
+        out[dev.type] = (float(metrics["loss"]), {key: t.cpu() for key, t in
+                                                  model.module.state_dict().items()}, grads)
+
+    def rel(a, b, keep=lambda key: True):
+        keys = [key for key, t in b.items() if t.is_floating_point() and keep(key)]
+        num = sum(float(((a[key].double() - b[key].double()) ** 2).sum()) for key in keys)
+        return (num / sum(float((b[key].double() ** 2).sum()) for key in keys)) ** 0.5
+
+    (loss, sd, grads), (want_loss, want_sd, want_grads) = out["cuda"], out["cpu"]
+    assert loss == pytest.approx(want_loss, rel=1e-4)
+    assert rel(sd, want_sd, lambda key: "running" not in key) < 1e-4
+    assert rel(sd, want_sd, lambda key: "running" in key) < 1e-4
+    m64 = api.build_trainable("i3d", seed=3, device="cpu", num_classes=7, dropout=0.0,
+                              compute_dtype="float64", preprocess=pp)
+    from asltpu_torch.ops.preprocess import preprocess_clip
+
+    clip = preprocess_clip(torch.from_numpy(frames), m64.cfg.preprocess).double()
+    module = m64.module.double()
+    loss64 = loop.softmax_ce(module(clip, train=True), torch.from_numpy(labels),
+                             tcfg.label_smoothing)
+    g64 = {n: 0.1 * g for (n, _), g in zip(module.named_parameters(), torch.autograd.grad(
+        loss64, list(module.parameters())))}
+    assert rel(grads, g64) <= 2 * rel(want_grads, g64) + 1e-3
+
+    bn = torch.nn.BatchNorm3d(16, eps=1e-3).to(card)
+    gen = torch.Generator(card).manual_seed(9)
+    x = (torch.randn((2, 16, 3, 5, 4), generator=gen, device=card) * 4 + 1).bfloat16()
+    with torch.no_grad():
+        got = batch_norm(bn, x.contiguous(memory_format=torch.channels_last_3d), True)
+    x32 = x.float()
+    mean, var = x32.mean((0, 2, 3, 4)), x32.var((0, 2, 3, 4), unbiased=False)
+    ref = (x32 - mean.view(1, -1, 1, 1, 1)) / torch.sqrt(var.view(1, -1, 1, 1, 1) + 1e-3)
+    # One bf16 ulp of each value, and 1e-5 for values near 0 (the reference
+    # divides by the square root where the kernel multiplies by rsqrt).
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7) + 1e-5
+    assert got.dtype == torch.bfloat16 and bool(((got.float() - ref).abs() <= ulp).all())
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean, rtol=1e-5, atol=1e-6)

@@ -19,9 +19,13 @@ for m in pkgutil.walk_packages(asltpu_torch.__path__, "asltpu_torch."):
 bad = sorted(
     m for m in sys.modules
     if m == "asltpu" or m.startswith("asltpu.")
-    or m.split(".")[0] in ("jax", "jaxlib", "flax")
+    or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "grain")
 )
 assert not bad, bad
+train = ("asltpu_torch.train.loop", "asltpu_torch.ops.augment", "asltpu_torch.data.loader",
+         "asltpu_torch.eval.metrics", "asltpu_torch.ckpt", "asltpu_torch.models.i3d",
+         "asltpu_torch.models.bilstm")
+assert set(train) <= set(sys.modules), sorted(set(train) - set(sys.modules))
 print("walked", sum(m.startswith("asltpu_torch") for m in sys.modules))
 """
 
