@@ -76,6 +76,7 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             gru_hidden=cfg.gru_hidden,
             gru_layers=cfg.gru_layers,
             dropout=cfg.dropout,
+            dtype=cfg.compute_torch_dtype,
         )
     if isinstance(cfg, ResNet18TransformerConfig):
         return ResNet18Transformer(
@@ -86,6 +87,7 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             num_tx_layers=cfg.num_tx_layers,
             mlp_ratio=cfg.mlp_ratio,
             dropout=cfg.dropout,
+            dtype=cfg.compute_torch_dtype,
         )
     if isinstance(cfg, PoseBiLSTMConfig):
         return PoseBiLSTM(
@@ -110,6 +112,7 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             width_mult=cfg.width_mult,
             num_landmarks=cfg.num_landmarks,
             landmark_dim=cfg.landmark_dim,
+            dtype=cfg.compute_torch_dtype,
         )
     raise ValueError(f"no model for config {type(cfg).__name__}")
 
@@ -218,9 +221,9 @@ def load_model(
     return Model(cfg=cfg, module=module, device=dev)
 
 
-# The families whose modules train; the others wait for their compute-dtype
-# change and parity tests (ROADMAP queue 1, item 11b).
-TRAINABLE = (I3DConfig, PoseBiLSTMConfig)
+# The families whose modules train: all five.
+TRAINABLE = (PoseBiLSTMConfig, MobileNetV2GRUConfig, ResNet18TransformerConfig, I3DConfig,
+             TwoStreamFusionConfig)
 
 
 def build_trainable(name: str, seed: int = 0,
@@ -234,10 +237,6 @@ def build_trainable(name: str, seed: int = 0,
     :func:`asltpu_torch.train.loop.create_train_state` or ``train``."""
     dev = resolve_device(device)
     cfg = get_config(name, **overrides)
-    if not isinstance(cfg, TRAINABLE):
-        raise NotImplementedError(
-            f"training {name} is not ported yet (ROADMAP queue 1, item 11b); "
-            "i3d and pose_bilstm train")
     module = build_module(cfg)
     init_weights(module, torch.Generator().manual_seed(seed))
     to_channels_last(module.to(device=dev)).train()

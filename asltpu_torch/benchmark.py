@@ -498,15 +498,34 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
     return cell
 
 
-def _train_gflops(state, step_fn, x, labels) -> float:
+def _grouped_conv_backward_flop(grad_out_shape, x_shape, w_shape, bias, stride, padding,
+                                dilation, transposed, output_padding, groups, output_mask,
+                                out_shape=None, **kwargs) -> int:
+    """torch's count of a conv's backward, with the weight gradient of a
+    grouped conv divided by its groups: ``FlopCounterMode`` counts that
+    gradient as a dense conv's, ``groups`` times the operations
+    (MobileNetV2's depthwise convs, up to 960 groups)."""
+    from torch.utils.flop_counter import conv_backward_flop
+
+    args = (grad_out_shape, x_shape, w_shape, bias, stride, padding, dilation, transposed,
+            output_padding, groups)
+    flops = conv_backward_flop(*args, [output_mask[0], False], out_val=out_shape)
+    if output_mask[1]:
+        flops += conv_backward_flop(*args, [False, True], out_val=out_shape) // groups
+    return flops
+
+
+def train_gflops(state, step_fn, batch_in, labels) -> float:
     """Operations of one train step, GFLOP (``FlopCounterMode``: convs and
-    matmuls, forward and backward, and the recompute where remat is on; the
-    preprocess kernel is not a PyTorch op)."""
+    matmuls, forward and backward, and the recompute where remat is on, a
+    grouped conv's weight gradient counted per group; the preprocess
+    kernel is not a PyTorch op)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    counter = FlopCounterMode(display=False)
+    counter = FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.convolution_backward: _grouped_conv_backward_flop})
     with counter:
-        step_fn(state, x, labels)
+        step_fn(state, batch_in, labels)
     return counter.get_total_flops() / 1e9
 
 
@@ -558,9 +577,9 @@ def bench_train_cells(opts: argparse.Namespace,
             torch.cuda.synchronize(device)
             peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         model.module.remat = False
-        fwd_bwd = _train_gflops(state, step_fn, *inputs[0]) / batch
+        fwd_bwd = train_gflops(state, step_fn, *inputs[0]) / batch
         model.module.remat = True
-        with_remat = _train_gflops(state, step_fn, *inputs[0]) / batch
+        with_remat = train_gflops(state, step_fn, *inputs[0]) / batch
         model.module.remat = remat
         cell: Dict[str, object] = {
             "family": "i3d", "lane": "train", "config": name, "batch": batch, "remat": remat,

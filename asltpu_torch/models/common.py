@@ -4,13 +4,13 @@ of the shared parts: dropout from an explicit generator and BatchNorm in
 training mode as flax computes it. Counterpart of
 ``asltpu/models/common.py``.
 
-The models that train (``I3D``, ``PoseBiLSTM``) take ``train`` and a
-``generator`` as arguments of ``forward``, as the JAX modules take
-``train`` and a dropout key; ``nn.Module.training`` plays no part. Their
-compute dtype is their own (``dtype``), apart from the dtype of their
-parameters: fp32 masters are cast inside each layer, so the gradient
-reaches the fp32 parameter, and a model cast ahead by
-:func:`cast_for_compute` pays a no-op cast.
+Every model takes ``train`` and a ``generator`` as arguments of
+``forward``, as the JAX modules take ``train`` and a dropout key;
+``nn.Module.training`` plays no part. Its compute dtype is its own
+(``dtype``; None: the dtype of its weights), apart from the dtype of its
+parameters: fp32 masters are cast inside each layer (:func:`cast`), so the
+gradient reaches the fp32 parameter, and a model cast ahead by
+:func:`cast_for_compute` is not cast again.
 """
 
 from __future__ import annotations
@@ -23,9 +23,6 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from asltpu_torch.models.temporal import TransformerHead
-from asltpu_torch.ops.recurrent import GRU
 
 # Normalisation layers keep fp32 parameters and statistics under any compute
 # dtype, as flax's ``param_dtype=float32`` does: they take the low-precision
@@ -91,10 +88,47 @@ class Dropout(nn.Module):
         if not train or self.p == 0.0:
             return x
         keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        return torch.where(keep, x / _in_dtype(1.0 - self.p, x.dtype), torch.zeros_like(x))
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """``value`` rounded to ``dtype`` (a 0-d CPU tensor, which an op on any
+    device takes as a scalar of that dtype), as JAX rounds a Python float
+    that meets an array."""
+    return torch.tensor(value, dtype=dtype)
+
+
+def attention_dropout(weights: torch.Tensor, p: float, train: bool,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Dropout on attention weights [B, H, q, k] as flax's
+    ``dot_product_attention_weights`` applies it (``broadcast_dropout=True``):
+    one keep mask of shape [1, 1, q, k] from ``generator``, shared by the
+    whole batch and every head, and the weights multiplied by
+    ``keep / (1 − p)`` computed in the weights' dtype (under bf16 the
+    factor is bf16(1 / bf16(1 − p))). Identity unless ``train``."""
+    if not train or p == 0.0:
+        return weights
+    q, k = weights.shape[-2:]
+    keep = torch.rand((1, 1, q, k), generator=generator, device=weights.device) >= p
+    return weights * (keep.to(weights.dtype) / _in_dtype(1.0 - p, weights.dtype))
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``: an fp32 master cast inside the layer (the
+    gradient reaches it), a weight already in ``dtype`` as it is (a
+    ``.to`` that changes nothing still costs a dispatch)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` applied in the dtype of ``x``: its weight (and bias) cast
+    to it inside the layer."""
+    bias = None if conv.bias is None else cast(conv.bias, x.dtype)
+    return F.conv2d(x, cast(conv.weight, x.dtype), bias, conv.stride, conv.padding,
+                    conv.dilation, conv.groups)
 
 
 class ConvBN(nn.Sequential):
@@ -113,6 +147,11 @@ class ConvBN(nn.Sequential):
             nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
             relu6(),
         )
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """In the dtype of ``x``: the conv's weight cast to it, BN through
+        :func:`batch_norm` (fp32 statistics, one rounding), ReLU6."""
+        return self[2](batch_norm(self[1], conv2d(self[0], x), train))
 
 
 def same_pads(lengths: Sequence[int], kernel: Sequence[int],
@@ -154,7 +193,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     zero bias), GRUs and LSTMs U(-1/√H, 1/√H), the transformer's CLS token
     and positions truncated-normal (std 0.02), the fusion model's positions
     too."""
-    from asltpu_torch.models.fusion import TwoStreamFusion  # it imports this module
+    # These modules import this one.
+    from asltpu_torch.models.fusion import TwoStreamFusion
+    from asltpu_torch.models.temporal import TransformerHead
+    from asltpu_torch.ops.recurrent import GRU
 
     with torch.no_grad():
         for m in module.modules():
@@ -213,7 +255,8 @@ def split_time_from_batch(x: torch.Tensor, bt: Tuple[int, int]) -> torch.Tensor:
 
 def per_frame(backbone, clip: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[B, T, H, W, 3] NHWC clip → [B, T, F] features of the per-frame
-    ``backbone`` (NCHW frames → [N, F]) run in ``dtype``."""
+    ``backbone`` (NCHW frames → [N, F]) run in ``dtype``, the caller's
+    compute dtype."""
     frames, bt = merge_time_into_batch(clip)
     # NHWC → NCHW view: channels_last strides, no copy.
-    return split_time_from_batch(backbone(frames.permute(0, 3, 1, 2).to(dtype)), bt)
+    return split_time_from_batch(backbone(cast(frames.permute(0, 3, 1, 2), dtype)), bt)

@@ -10,7 +10,10 @@ Children ``0`` (stem) … ``17`` (blocks) and ``18`` (head) carry the
 torchvision names, so a torchvision-layout state dict loads with
 ``load_state_dict``. The module takes NCHW input; the port runs it in
 ``torch.channels_last`` memory, which the preprocess output already is
-after ``permute(0, 3, 1, 2)``.
+after ``permute(0, 3, 1, 2)``. It computes in the dtype of its input
+(each conv casts its weight to it) and trains as flax's does
+(``forward(x, train=True)``: BatchNorm through
+:func:`asltpu_torch.models.common.batch_norm`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from asltpu_torch.models.common import ConvBN
+from asltpu_torch.models.common import ConvBN, batch_norm, conv2d
 
 # (expand_ratio, out_channels, num_blocks, first_stride)
 _INVERTED_RESIDUAL_SCHEDULE: Tuple[Tuple[int, int, int, int], ...] = (
@@ -61,8 +64,12 @@ class InvertedResidual(nn.Module):
         ]
         self.conv = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        *convbns, project, project_bn = self.conv
+        y = x
+        for layer in convbns:
+            y = layer(y, train)
+        y = batch_norm(project_bn, conv2d(project, y), train)
         return x + y if self.use_res else y
 
 
@@ -85,5 +92,7 @@ class MobileNetV2(nn.Sequential):
         super().__init__(*layers)
         self.out_features = head_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x).mean(dim=(2, 3))  # global average pool
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for layer in self:
+            x = layer(x, train)
+        return x.mean(dim=(2, 3))  # global average pool

@@ -9,7 +9,11 @@ stride-2 stem, 3×3 stride-2 max pool, four stages of two BasicBlocks
 The names are torchvision's (``conv1``, ``bn1``, ``layer{s}.{b}.conv1/bn1/
 conv2/bn2``, ``layer{s}.{b}.downsample.0/.1``), the ones
 ``asltpu.ckpt.import_resnet18`` reads. The module takes NCHW input; the port
-runs it in ``torch.channels_last`` memory.
+runs it in ``torch.channels_last`` memory. It computes in the dtype of its
+input (each conv casts its weight to it; BatchNorm keeps fp32 parameters
+and normalises in fp32) and trains as flax's does (``forward(x,
+train=True)``: BatchNorm through
+:func:`asltpu_torch.models.common.batch_norm`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from asltpu_torch.models.common import batch_norm, conv2d
 
 _STAGES = ((64, 1), (128, 2), (256, 2), (512, 2))  # (width, first stride)
 
@@ -40,18 +46,19 @@ class BasicBlock(nn.Module):
             nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride, bias=False), _bn(out_ch))
             if stride != 1 or in_ch != out_ch else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.relu(batch_norm(self.bn1, conv2d(self.conv1, x), train))
+        y = batch_norm(self.bn2, conv2d(self.conv2, y), train)
+        identity = x
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            identity = batch_norm(bn, conv2d(conv, x), train)
         return F.relu(y + identity)
 
 
 class ResNet18(nn.Module):
     """[N, 3, H, W] → pooled per-image features [N, 512] (no classifier —
-    the temporal head classifies). It runs in the dtype of its conv
-    weights; the BNs may keep fp32 parameters (mixed-dtype BN normalises in
-    fp32 and returns the input's dtype)."""
+    the temporal head classifies), in the dtype of the input."""
 
     out_features = 512
 
@@ -65,10 +72,11 @@ class ResNet18(nn.Module):
                 BasicBlock(in_ch, ch, stride), BasicBlock(ch, ch, 1)))
             in_ch = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = F.relu(batch_norm(self.bn1, conv2d(self.conv1, x), train))
         # max_pool2d pads with −inf, as flax's max_pool does.
         x = F.max_pool2d(x, 3, 2, 1)
         for s in range(len(_STAGES)):
-            x = getattr(self, f"layer{s + 1}")(x)
+            for block in getattr(self, f"layer{s + 1}"):
+                x = block(x, train)
         return x.mean(dim=(2, 3))  # global average pool

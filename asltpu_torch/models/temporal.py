@@ -1,6 +1,11 @@
 """Temporal classification heads over per-frame feature sequences: the GRU
 head and the pre-LN transformer encoder head. Counterpart of
-``asltpu/models/temporal.py``."""
+``asltpu/models/temporal.py``.
+
+Both train as the JAX heads do (``forward(feats, train=True,
+generator=g)``): every dropout, attention's included, draws from ``g``
+and only in training; linears cast their weights to the compute dtype
+inside the layer, so fp32 masters take the gradient."""
 
 from __future__ import annotations
 
@@ -11,14 +16,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from asltpu_torch.models.common import Dropout, attention_dropout, cast
 from asltpu_torch.ops.recurrent import GRU
 
 
 class GRUHead(nn.Module):
     """GRU over [B, T, F] features → logits [B, num_classes].
 
-    The recurrence runs in fp32 whatever the backbone's dtype (the loop over
-    T amplifies low-precision error). Dropout goes where torch puts it: on
+    The recurrence runs in the dtype of the head's parameters, fp32
+    whatever the backbone's dtype (the loop over T amplifies low-precision
+    error). Dropout goes where torch puts it: on
     each GRU layer's output sequence except the last (inside :class:`GRU`),
     and on the final hidden state before ``fc``.
     """
@@ -27,18 +34,19 @@ class GRUHead(nn.Module):
                  num_layers: int = 1, dropout: float = 0.2):
         super().__init__()
         self.gru = GRU(feature_dim, hidden, num_layers, dropout)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.fc = nn.Linear(hidden, num_classes)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        _, h_last = self.gru(feats.to(torch.float32))
-        return self.fc(self.dropout(h_last[-1]))
+    def forward(self, feats: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        _, h_last = self.gru(cast(feats, self.fc.weight.dtype), train, generator)
+        return self.fc(self.dropout(h_last[-1], train, generator))
 
 
 def _dense(x: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
-    """flax ``Dense`` in the input's dtype: the product rounds, then the
-    bias is added and rounds again."""
-    return torch.matmul(x, linear.weight.t()) + linear.bias
+    """flax ``Dense`` in the input's dtype: the weight and bias cast to it,
+    the product rounds, then the bias is added and rounds again."""
+    return torch.matmul(x, cast(linear.weight, x.dtype).t()) + cast(linear.bias, x.dtype)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -50,35 +58,41 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _softmax(s: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis, each operation rounding to the
-    input's dtype: exp(s − max), then divided by its sum."""
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    input's dtype: exp(s − max), then divided by its sum. The max takes no
+    gradient (``stop_gradient`` there)."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
     return e / e.sum(dim=-1, keepdim=True)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """flax ``LayerNorm`` with fp32 parameters: statistics and the
-    normalisation in fp32, one rounding to the input's dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
+    normalisation in the parameters' dtype (fp32), one rounding to the
+    input's dtype."""
+    return cast(F.layer_norm(cast(x, ln.weight.dtype), ln.normalized_shape, ln.weight,
+                             ln.bias, ln.eps), x.dtype)
 
 
-def attention(mha: nn.MultiheadAttention, q_in: torch.Tensor,
-              kv_in: torch.Tensor) -> torch.Tensor:
+def attention(mha: nn.MultiheadAttention, q_in: torch.Tensor, kv_in: torch.Tensor,
+              train: bool = False, generator: Optional[torch.Generator] = None
+              ) -> torch.Tensor:
     """flax ``MultiHeadDotProductAttention(q_in, kv_in)`` with the
     parameters of ``mha`` (``in_proj_weight``/``in_proj_bias`` rows q;k;v,
     ``out_proj``): q from ``q_in``, k and v from ``kv_in``, each projected
-    and rounded, q scaled by 1/√head_dim, QKᵀ, softmax, the weighted sum of
-    v, the output projection, each rounding to the compute dtype.
-    ``nn.MultiheadAttention``'s own forward is not used, since its fused
-    inference path rounds elsewhere."""
+    and rounded, q scaled by 1/√head_dim, QKᵀ, softmax, in training the
+    weights' dropout (:func:`~asltpu_torch.models.common.attention_dropout`:
+    one mask shared by batch and heads, from ``generator``), the weighted
+    sum of v, the output projection, each rounding to the compute dtype
+    (that of ``q_in``). ``nn.MultiheadAttention``'s own forward is not
+    used, since its fused inference path rounds elsewhere."""
     b, n, d = q_in.shape
     heads = mha.num_heads
-    (wq, wk, wv), (bq, bk, bv) = mha.in_proj_weight.chunk(3), mha.in_proj_bias.chunk(3)
+    w_in, b_in = cast(mha.in_proj_weight, q_in.dtype), cast(mha.in_proj_bias, q_in.dtype)
+    (wq, wk, wv), (bq, bk, bv) = w_in.chunk(3), b_in.chunk(3)
     q, k, v = ((torch.matmul(x, w.t()) + bias).view(b, x.shape[1], heads, d // heads)
                for x, w, bias in ((q_in, wq, bq), (kv_in, wk, bk), (kv_in, wv, bv)))
     q = q / torch.tensor(math.sqrt(d // heads), dtype=q.dtype)
     weights = _softmax(torch.einsum("bqhd,bkhd->bhqk", q, k))
-    weights = F.dropout(weights, mha.dropout, mha.training)
+    weights = attention_dropout(weights, mha.dropout, train, generator)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, d)
     return _dense(out, mha.out_proj)
 
@@ -98,23 +112,27 @@ class EncoderBlock(nn.Module):
         self.ln2 = nn.LayerNorm(d_model, eps=1e-5)
         self.mlp1 = nn.Linear(d_model, d_model * mlp_ratio)
         self.mlp2 = nn.Linear(d_model * mlp_ratio, d_model)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In the dtype of ``x``; dropout on the attention weights, after
+        attention and after the MLP, as flax's block."""
         y = _layer_norm(x, self.ln1)
-        x = x + self.dropout(attention(self.attn, y, y))
+        y = attention(self.attn, y, y, train, generator)
+        x = x + self.dropout(y, train, generator)
         y = _gelu(_dense(_layer_norm(x, self.ln2), self.mlp1))
-        return x + self.dropout(_dense(y, self.mlp2))
+        return x + self.dropout(_dense(y, self.mlp2), train, generator)
 
 
 class TransformerHead(nn.Module):
     """Pre-LN transformer encoder over [B, T, F] frame features with a
     learned CLS token and learned positions → logits [B, num_classes].
 
-    It computes in the dtype of its parameters (bf16 under
-    ``asltpu_torch.api.load_model``'s default), except that its LayerNorms
-    and ``fc`` keep fp32 parameters, as the reference's do: the CLS token
-    is concatenated and the positions added in the compute dtype, each
+    It computes in ``dtype`` (None: the dtype of ``pos``, as a head cast by
+    ``cast_for_compute`` has it; bf16 under the config's default), except
+    that its LayerNorms and ``fc`` stay fp32, as the reference's do: the
+    CLS token and the positions are cast to the compute dtype, each
     LayerNorm normalises in fp32 and rounds once, and the CLS output goes
     to fp32 before ``fc``. ``in_proj`` exists only when the feature width
     differs from ``d_model``; ``pos`` has ``num_frames + 1`` rows.
@@ -122,13 +140,15 @@ class TransformerHead(nn.Module):
 
     def __init__(self, num_classes: int, feature_dim: int, num_frames: int,
                  d_model: int = 512, num_heads: int = 8, num_layers: int = 4,
-                 mlp_ratio: int = 4, dropout: float = 0.1):
+                 mlp_ratio: int = 4, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.in_proj: Optional[nn.Linear] = (
             nn.Linear(feature_dim, d_model) if feature_dim != d_model else None)
         self.cls = nn.Parameter(torch.zeros(1, 1, d_model))
         self.pos = nn.Parameter(torch.zeros(1, num_frames + 1, d_model))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.layers = nn.ModuleList(
             EncoderBlock(d_model, num_heads, mlp_ratio, dropout)
             for _ in range(num_layers))
@@ -143,13 +163,14 @@ class TransformerHead(nn.Module):
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                       generator=generator)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        dtype = self.pos.dtype
-        x = feats.to(dtype)
+    def forward(self, feats: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dtype = self.dtype or self.pos.dtype
+        x = cast(feats, dtype)
         if self.in_proj is not None:
             x = _dense(x, self.in_proj)
-        cls = self.cls.to(dtype).expand(x.shape[0], 1, -1)
-        x = self.dropout(torch.cat([cls, x], dim=1) + self.pos.to(dtype))
+        cls = cast(self.cls, dtype).expand(x.shape[0], 1, -1)
+        x = self.dropout(torch.cat([cls, x], dim=1) + cast(self.pos, dtype), train, generator)
         for layer in self.layers:
-            x = layer(x)
-        return self.fc(_layer_norm(x, self.final_ln)[:, 0].float())
+            x = layer(x, train, generator)
+        return self.fc(cast(_layer_norm(x, self.final_ln)[:, 0], self.fc.weight.dtype))

@@ -21,6 +21,8 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from asltpu_torch.models.common import Dropout
+
 
 def lstm_layer(
     x: torch.Tensor,  # [B, T, F]
@@ -73,12 +75,13 @@ def gru_layer(
     reverse: bool = False,
     h0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One unidirectional GRU layer. Returns ([B, T, H] outputs, h_T)."""
+    """One unidirectional GRU layer in the weights' dtype (fp32 in every
+    model). Returns ([B, T, H] outputs, h_T)."""
     b, t, f = x.shape
     hidden = w_hh.shape[1]
-    x32 = x.to(torch.float32)
-    x_proj = torch.addmm(b_ih, x32.reshape(b * t, f), w_ih.t()).reshape(b, t, -1)
-    h = x32.new_zeros(b, hidden) if h0 is None else h0
+    xw = x.to(w_ih.dtype)
+    x_proj = torch.addmm(b_ih, xw.reshape(b * t, f), w_ih.t()).reshape(b, t, -1)
+    h = xw.new_zeros(b, hidden) if h0 is None else h0
     outs: List[torch.Tensor] = []
     for s in (range(t - 1, -1, -1) if reverse else range(t)):
         gh = torch.addmm(b_hh, h, w_hh.t())  # [B, 3H]
@@ -97,14 +100,15 @@ def gru_layer(
 class GRU(nn.Module):
     """Stacked unidirectional GRU over batch-first ``[B, T, F]`` input, with
     ``torch.nn.GRU``'s parameter names (``weight_ih_l0`` …) and dropout on
-    every layer's output sequence except the last."""
+    every layer's output sequence except the last, in training only, from
+    the generator passed to ``forward``."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  dropout: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         for layer in range(num_layers):
             fan_in = input_size if layer == 0 else hidden_size
             g = 3 * hidden_size
@@ -123,7 +127,9 @@ class GRU(nn.Module):
             for p in self.parameters():
                 p.uniform_(-k, k, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, T, F] → ([B, T, H] last layer's outputs, [L, B, H] final states)."""
         finals = []
         for layer in range(self.num_layers):
@@ -136,5 +142,5 @@ class GRU(nn.Module):
             )
             finals.append(h)
             if layer < self.num_layers - 1:
-                x = self.dropout(x)
+                x = self.dropout(x, train, generator)
         return x, torch.stack(finals)

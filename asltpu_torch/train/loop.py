@@ -16,6 +16,11 @@ On a CUDA batch with ``pp_cfg.use_pallas`` the step's preprocess launches
 the hand-written rgb kernel (``asltpu_torch.ops.preprocess_kernels``) on the
 uint8 batch before the autograd graph begins: its output needs no
 gradient.
+
+A model with more than one input (``two_stream``: clip and landmarks)
+takes its batch as a tuple: element 0 is the RGB input, preprocessed (or
+augmented) as above, and the others go to the module as they are, as the
+JAX step takes them.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +39,7 @@ from asltpu_torch.config import PreprocessConfig, TrainConfig
 from asltpu_torch.ops.preprocess import preprocess_clip
 
 Metrics = Dict[str, torch.Tensor]
+Batch = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 @dataclasses.dataclass
@@ -133,20 +139,31 @@ def _check_augment(pp_cfg: Optional[PreprocessConfig], augment) -> bool:
     return enabled
 
 
+def _split(batch_in: Batch) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """A batch → (its RGB input, the module's other inputs): a tuple's
+    element 0 and the rest, or a tensor and nothing."""
+    if isinstance(batch_in, (tuple, list)):
+        return batch_in[0], tuple(batch_in[1:])
+    return batch_in, ()
+
+
 def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = None,
-                 augment=None) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
+                 augment=None) -> Callable[[TrainState, Batch, torch.Tensor],
                                            Tuple[TrainState, Metrics]]:
     """The train step ``(state, batch_in, labels) → (state, metrics)`` on
     tensors already on the state's device. With ``pp_cfg`` it takes staged
     uint8 frames and preprocesses them (the augmented variant,
     :mod:`asltpu_torch.ops.augment`, when ``augment`` is an enabled
-    ``AugmentConfig``), else it takes the model's input as is. Metrics:
-    ``loss``, ``top1`` (share of the batch) and ``grad_norm`` (before the
-    clip)."""
+    ``AugmentConfig``), else it takes the model's input as is. A tuple
+    ``batch_in`` is (RGB input, other inputs...): only element 0 is
+    preprocessed or augmented (a flip or crop is not mirrored into
+    landmarks). Metrics: ``loss``, ``top1`` (share of the batch) and
+    ``grad_norm`` (before the clip)."""
     augmenting = _check_augment(pp_cfg, augment)
 
-    def step_fn(state: TrainState, batch_in: torch.Tensor, labels: torch.Tensor):
+    def step_fn(state: TrainState, batch_in: Batch, labels: torch.Tensor):
         module, gen = state.module, state.generator
+        batch_in, extras = _split(batch_in)
         with torch.no_grad():
             if pp_cfg is None:
                 clip = batch_in
@@ -156,7 +173,7 @@ def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = No
                 clip = augment_preprocess_clip(gen, batch_in, pp_cfg, augment)
             else:
                 clip = preprocess_clip(batch_in, pp_cfg)
-        logits = module(clip, train=True, generator=gen)
+        logits = module(clip, *extras, train=True, generator=gen)
         loss = softmax_ce(logits, labels, train_cfg.label_smoothing)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -172,8 +189,11 @@ def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = No
     return step_fn
 
 
-def _on(device: torch.device, x) -> torch.Tensor:
-    """A host array or a tensor → a tensor on ``device``."""
+def _on(device: torch.device, x) -> Batch:
+    """A host array or a tensor (or a tuple of them) → a tensor (tuple) on
+    ``device``."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_on(device, a) for a in x)
     t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
     return t.to(device, non_blocking=True)
 
@@ -193,15 +213,16 @@ def make_train_step(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] =
 
 def make_eval_step(pp_cfg: Optional[PreprocessConfig] = None):
     """``(state, batch_in, labels) → (top-1 hits, top-5 hits)`` as 0-d int
-    tensors: the module in inference (running statistics, no dropout) on the
-    preprocessed batch. A pad row with label −1 matches no class, so it
-    adds no hit."""
+    tensors: the module in inference (running statistics, no dropout,
+    whatever its ``training`` flag) on the preprocessed batch (a tuple as
+    the train step takes it). A pad row with label −1 matches no class, so
+    it adds no hit."""
     def eval_fn(state: TrainState, batch_in, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         dev = state.device
-        batch_in, labels = _on(dev, batch_in), _on(dev, labels).long()
+        (batch_in, extras), labels = _split(_on(dev, batch_in)), _on(dev, labels).long()
         with torch.no_grad():
             clip = preprocess_clip(batch_in, pp_cfg) if pp_cfg is not None else batch_in
-            logits = state.module(clip, train=False)
+            logits = state.module(clip, *extras, train=False)
             top1 = (logits.argmax(-1) == labels).sum()
             k = min(5, logits.shape[-1])
             top5 = (logits.topk(k, dim=-1).indices == labels[:, None]).any(-1).sum()
@@ -222,7 +243,8 @@ def train(
     resumable_iter=None,
 ) -> TrainState:
     """Run the training loop over an iterable of ``(batch_in, labels)``
-    (numpy arrays or tensors).
+    (numpy arrays or tensors; ``batch_in`` a tuple ``(clip, landmarks)``
+    for ``two_stream``).
 
     Without ``state`` it starts from ``module`` with
     :func:`create_train_state` (``train_cfg.seed``) and resumes from the

@@ -94,8 +94,9 @@ phase printing one JSON line:
    ``LandmarkStore.for_path`` gives ``predict``'s logits; device-only
    clips/s by CUDA events. The pose path runs no preprocess kernel.
 14. bench — ``asltpu_torch.benchmark`` in this process over its seven
-   (family, lane) cells with a short stream (the ``i3d:train`` cell in its
-   two configurations); its result line.
+   (family, lane) cells with a short stream and the decode pool at 4
+   workers (the ``i3d:train`` cell in its two configurations); its result
+   line.
 15. train (run after the two_stream lane) — I3D fine-tuning at full
    width: ``build_trainable("i3d")`` (2000 classes, 64 frames of 256²
    staged, crop 224, bf16 compute with fp32 masters, remat on) at
@@ -114,11 +115,28 @@ phase printing one JSON line:
    remat on): ms a step by CUDA events, train clips/s, peak GB, GFLOP per
    clip of forward + backward (recompute apart) and MFU, each printed on a
    line of its own after the bench's result line.
+   Then, one line each, ``mobilenet_gru`` (MobileNetV2 ×1.0, GRU 512, 100
+   classes, 16 frames), ``resnet_transformer`` (ResNet-18, a 4-layer head
+   of width 512, 300 classes, 32 frames) and ``two_stream`` (d_model 256,
+   2 layers, 16 frames with seeded landmarks [8, 16, 543, 3]) at full
+   width, bf16 compute with fp32 masters, batch 8 from 256² RGB staged:
+   the first step (lr 0) against its ``use_pallas=False`` twin (the same
+   loss, grad_norm within 1e-2) with its peak memory; the fp32 step at the
+   CPU test's size on the card against the CPU; ``train()`` with eval on 2
+   batches and keep-best (``mobilenet_gru``: 10 steps on one fixed batch,
+   the loss must fall, then the fault and resume as I3D's; the others 4
+   steps, ``two_stream`` on ``((clip, landmarks), labels)`` batches), the
+   rgb kernel launched once in each train and each eval step; then the
+   step timed by CUDA events (input varied per step): ms a step, train
+   clips/s, peak GB, GFLOP per clip of forward + backward
+   (``FlopCounterMode``, a grouped conv's weight gradient per group) and
+   MFU, each printed on a line of its own.
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
-the train phase sets them to 0 just before its ``train()`` run and reads
-its train steps' launches when the run's eval begins, its eval's after it.
+the train phase sets them to 0 just before each family's ``train()`` run
+and reads its train steps' launches when the run's eval begins, its eval's
+after it.
 Then the card's ``nvidia-smi`` line, the kernels' JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero; on
 a host without a CUDA device it exits nonzero before doing anything. At the
@@ -218,10 +236,11 @@ POSE_BATCH = 64  # the JAX bench's pose batch (asltpu/benchmark.py:1299)
 # fp32 logits, card vs CPU, full width at batch 64: 1.04e-7 with the LSTM
 # in fp32, 1.19e-4 with TF32 on inside it (NVIDIA H100 80GB HBM3, 700 W).
 POSE_CPU_ATOL = 1e-5
-# The bench phase: a short stream and small corpora, so the whole script
-# stays within a few minutes.
+# The bench phase: a short stream, small corpora and the process pool at 4
+# workers only (each pool size spawns its workers anew; the full bench
+# times 1, 2 and 4), so the whole script stays within half its limit.
 BENCH_ARGS = ["--stream-batches", "4", "--windows", "2", "--corpus-clips", "8",
-              "--mp4-batches", "2"]
+              "--mp4-batches", "2", "--decode-workers", "4"]
 
 
 def emit(obj) -> None:
@@ -490,23 +509,14 @@ def calibrate_bn(module, inputs, forward=None) -> None:
     identity) activations shrink through each depthwise conv of
     MobileNetV2, and the full-width features come out near 1e-8 and alike
     for every clip; I3D's grow instead; calibrated, every layer's output is
-    of order 1."""
-    import inspect
-
+    of order 1. Every model takes ``train`` as an argument (its BN ignores
+    the module's mode)."""
     bns = [m for m in module.modules()
            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     for m in bns:
         m.momentum = 1.0
-    module.train()
-    fn = forward or module
     with torch.no_grad():
-        # I3D takes ``train`` as an argument (its BN ignores the module's
-        # mode); the 2D backbones' BN follows the mode.
-        if "train" in inspect.signature(fn).parameters:
-            fn(inputs, train=True)
-        else:
-            fn(inputs)
-    module.eval()
+        (forward or module)(inputs, train=True)
     for m in bns:
         m.momentum = 0.1
 
@@ -1148,33 +1158,58 @@ TRAIN_REMAT_RTOL = 1e-3
 # parameters and the running statistics within 1e-4 relative (global norm).
 # The gradient (Adam's first moment over 0.1, no clip) is held to the CPU's
 # fp64 one: the card's fp32 gradient no farther from it than twice the
-# CPU's fp32 gradient, and 1e-3. At this size the deepest BatchNorms see 16
-# values a channel and amplify rounding, by an amount that depends on the
-# weights (the phase prints the CPU's distance; 0.63% at
-# tests/test_torch_train_i3d.py's weights), so no fixed bound fits. After
-# an update with lr > 0 the parameters are no test: Adam's first update is
+# CPU's fp32 gradient, and 1e-3. At these sizes the deepest BatchNorms see
+# 16-32 values a channel and amplify rounding, by an amount that depends
+# on the weights (the phase prints the CPU's distance; 0.63% at
+# tests/test_torch_train_i3d.py's weights, 0.49% for resnet_transformer at
+# tests/test_torch_train_video.py's), so no fixed bound fits. After an
+# update with lr > 0 the parameters are no test: Adam's first update is
 # lr·sign(g), and entries whose gradient is rounding noise flip sign.
-TRAIN_CPU_SIZE = {"num_classes": 7, "preprocess": {
-    "num_frames": 16, "staging_size": (40, 48), "resize_short": 36, "crop": 32,
-    "out_dtype": "float32"}}
+# The sizes are the CPU tests' (tests/test_torch_train_i3d.py,
+# tests/test_torch_train_video.py, tests/test_torch_train_fusion.py).
+_CPU_PP = {"num_frames": 4, "staging_size": (40, 48), "resize_short": 36, "crop": 32,
+           "out_dtype": "float32"}
+TRAIN_CPU_SIZES = {
+    "i3d": {"num_classes": 7, "preprocess": dict(_CPU_PP, num_frames=16)},
+    "mobilenet_gru": {"num_classes": 7, "width_mult": 0.35, "gru_hidden": 32,
+                      "preprocess": _CPU_PP},
+    "resnet_transformer": {"num_classes": 7, "d_model": 32, "num_heads": 4,
+                           "num_tx_layers": 2, "preprocess": {
+                               "num_frames": 3, "staging_size": (64, 80),
+                               "resize_short": 56, "crop": 48, "out_dtype": "float32"}},
+    "two_stream": {"num_classes": 7, "width_mult": 0.35, "d_model": 64, "num_heads": 4,
+                   "num_fusion_layers": 2, "preprocess": _CPU_PP},
+}
 TRAIN_CPU_RTOL, TRAIN_CPU_GRAD_SLACK = 1e-4, 1e-3
 # Resume: the losses of the resumed steps against the uninterrupted run's,
 # within three times the largest gap between the runs that were not cut
 # (two whole runs and the cut run before its fault): cuDNN's backward and
 # max-pool's are not bit-deterministic, and Adam's sign-like updates carry
-# the gap from step to step. The step, the batches taken, the generator's
-# state and the lr must be exact.
-TRAIN_RESUME_SPREADS = 3
+# the gap from step to step. Where the runs agree bit for bit (the spread
+# is 0, as mobilenet_gru's runs do on the card), the bound is 1e-5 of the
+# largest loss, so that a backward that is not bit-deterministic on another
+# card does not fail a resume that works. The step, the batches taken, the
+# generator's state and the lr must be exact.
+TRAIN_RESUME_SPREADS, TRAIN_RESUME_FLOOR = 3, 1e-5
+# The families trained after I3D, each at full width (FAMILIES' config
+# values, which are the config defaults) at TrainConfig's batch of 8 from
+# 256² RGB staged; mobilenet_gru (the north star) also learns and resumes,
+# the others run a short train() with eval.
+TRAIN_FAMILIES = ("mobilenet_gru", "resnet_transformer", "two_stream")
+TRAIN_SHORT_STEPS = 4
 
 
 class SeededBatches:
     """A stream of staged uint8 batches and labels made on the card, batch
     i from a generator seeded ``seed · 1000 + i``, with the position as its
     state (``get_state``/``set_state``, as the train loader's), so
-    ``ResumableIterator`` and a checkpoint can carry it."""
+    ``ResumableIterator`` and a checkpoint can carry it. With
+    ``landmarks`` (a [B, T, 543, 3] tensor) each batch is ``((frames,
+    landmarks), labels)``, as ``two_stream`` trains."""
 
-    def __init__(self, shape, num_classes, device, seed=SEED):
+    def __init__(self, shape, num_classes, device, seed=SEED, landmarks=None):
         self.shape, self.num_classes, self.device, self.seed = shape, num_classes, device, seed
+        self.landmarks = landmarks
         self.i = 0
         self.taken = []
 
@@ -1189,7 +1224,7 @@ class SeededBatches:
                           generator=gen)
         self.taken.append(self.i)
         self.i += 1
-        return x, y
+        return (x if self.landmarks is None else (x, self.landmarks)), y
 
     def get_state(self) -> bytes:
         return str(self.i).encode()
@@ -1211,7 +1246,21 @@ def _only(sd, word, keep):
     return {k: t for k, t in sd.items() if (word in k) == keep}
 
 
-def _train_card_vs_cpu():
+def _train_landmarks(name, batch, t, seed, device):
+    """Seeded landmarks [batch, t, 543, 3] on ``device`` for ``two_stream``,
+    else None."""
+    from asltpu_torch.data.synthetic import synthetic_landmarks
+
+    if name != "two_stream":
+        return None
+    return torch.from_numpy(synthetic_landmarks(batch, t, seed=seed)).to(device)
+
+
+def _with_landmarks(x, lm):
+    return x if lm is None else (x, lm)
+
+
+def _train_card_vs_cpu(name="i3d"):
     """The fp32 train step at the CPU test's size on the card and on the
     CPU (then the CPU's fp64 gradient), from the same seeded weights and
     batch (module constants above)."""
@@ -1220,35 +1269,40 @@ def _train_card_vs_cpu():
     from asltpu_torch.ops.preprocess import preprocess_clip
     from asltpu_torch.train import loop
 
+    size = TRAIN_CPU_SIZES[name]
     tcfg = TrainConfig(batch_size=TRAIN_BATCH, warmup_steps=1, num_steps=10,
                        grad_clip_norm=1e30)
     rng = np.random.default_rng(SEED + 12)
-    pp = TRAIN_CPU_SIZE["preprocess"]
+    pp = size["preprocess"]
     frames = rng.integers(0, 256, (TRAIN_BATCH, pp["num_frames"], *pp["staging_size"], 3),
                           np.uint8)
-    labels = rng.integers(0, TRAIN_CPU_SIZE["num_classes"], TRAIN_BATCH).astype(np.int32)
+    labels = rng.integers(0, size["num_classes"], TRAIN_BATCH).astype(np.int32)
+    lm = _train_landmarks(name, TRAIN_BATCH, pp["num_frames"], SEED + 12, "cpu")
     out = {}
     for dev in ("cuda", "cpu"):
         # Dropout 0: the card's generator draws other masks than the CPU's.
-        model = api.build_trainable("i3d", seed=SEED, device=dev, compute_dtype="float32",
-                                    dropout=0.0, **TRAIN_CPU_SIZE)
+        model = api.build_trainable(name, seed=SEED, device=dev, compute_dtype="float32",
+                                    dropout=0.0, **size)
         state = loop.create_train_state(model.module, tcfg, SEED)
-        state, metrics = loop.make_train_step(tcfg, model.cfg.preprocess)(state, frames, labels)
+        state, metrics = loop.make_train_step(tcfg, model.cfg.preprocess)(
+            state, _with_landmarks(frames, lm), labels)
         grads = {n: (state.optimizer.state[p]["exp_avg"] / 0.1).cpu()
-                 for n, p in model.module.named_parameters()}
+                 for n, p in model.module.named_parameters() if p.requires_grad}
         out[dev] = (float(metrics["loss"]), {k: t.detach().cpu() for k, t in
                                              model.module.state_dict().items()}, grads)
-    m64 = api.build_trainable("i3d", seed=SEED, device="cpu", compute_dtype="float64",
-                              dropout=0.0, **TRAIN_CPU_SIZE)
+    m64 = api.build_trainable(name, seed=SEED, device="cpu", compute_dtype="float64",
+                              dropout=0.0, **size)
     m64 = m64.module.double()
-    pp_cfg = api.get_config("i3d", **TRAIN_CPU_SIZE).preprocess
+    pp_cfg = api.get_config(name, **size).preprocess
     clip = preprocess_clip(torch.from_numpy(frames), pp_cfg).double()
-    loss64 = loop.softmax_ce(m64(clip, train=True), torch.from_numpy(labels),
+    extras = () if lm is None else (lm.double(),)
+    loss64 = loop.softmax_ce(m64(clip, *extras, train=True), torch.from_numpy(labels),
                              tcfg.label_smoothing)
-    g64 = dict(zip([n for n, _ in m64.named_parameters()],
-                   torch.autograd.grad(loss64, list(m64.parameters()))))
+    trained = [(n, p) for n, p in m64.named_parameters() if p.requires_grad]
+    g64 = dict(zip([n for n, _ in trained],
+                   torch.autograd.grad(loss64, [p for _, p in trained])))
     (card_loss, card_sd, card_g), (cpu_loss, cpu_sd, cpu_g) = out["cuda"], out["cpu"]
-    result = {"size": TRAIN_CPU_SIZE, "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+    result = {"size": size, "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
               "params_rel_err": _global_rel(card_sd, _only(cpu_sd, "running", False)),
               "running_stats_rel_err": _global_rel(card_sd, _only(cpu_sd, "running", True)),
               "grad_rel_err_vs_fp64": _global_rel(card_g, g64),
@@ -1258,38 +1312,41 @@ def _train_card_vs_cpu():
     result["grad_bound"] = 2 * result["cpu_grad_rel_err_vs_fp64"] + TRAIN_CPU_GRAD_SLACK
     if (max(result["loss_rel_err"], result["params_rel_err"], result["running_stats_rel_err"])
             > TRAIN_CPU_RTOL or result["grad_rel_err_vs_fp64"] > result["grad_bound"]):
-        raise AssertionError(f"train step on the card vs the CPU: {result}")
+        raise AssertionError(f"{name} train step on the card vs the CPU: {result}")
     return result
 
 
-def _first_steps(batch, labels):
+def _first_steps(batch, labels, name="i3d", variants=None):
     """One train step (the first of a warmup: lr 0) from the same seeded
-    weights on the same batch: remat on with the rgb kernel (the main
-    configuration), remat on with the plain preprocess, remat off with the
-    kernel. Returns {name: (loss, grad_norm, state_dict, peak GB)}."""
+    weights on the same batch, per variant of the config: by default (I3D)
+    remat on with the rgb kernel (the main configuration), remat on with
+    the plain preprocess, remat off with the kernel. Returns {variant:
+    (loss, grad_norm, state_dict, peak GB)}."""
     from asltpu_torch import api
     from asltpu_torch.config import TrainConfig
     from asltpu_torch.train import loop
 
+    if variants is None:
+        variants = (("kernel", {}), ("plain", {"preprocess": {"use_pallas": False}}),
+                    ("no_remat", {"remat": False}))
     tcfg = TrainConfig()
     out = {}
-    for name, over in (("kernel", {}), ("plain", {"preprocess": {"use_pallas": False}}),
-                       ("no_remat", {"remat": False})):
-        model = api.build_trainable("i3d", seed=SEED, **over)
+    for variant, over in variants:
+        model = api.build_trainable(name, seed=SEED, **over)
         state = loop.create_train_state(model.module, tcfg, SEED)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         state, metrics = loop.make_step_fn(tcfg, model.cfg.preprocess)(state, batch, labels)
         torch.cuda.synchronize()
-        out[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
-                     {k: t.detach().clone() for k, t in model.module.state_dict().items()},
-                     torch.cuda.max_memory_allocated() / 1e9)
+        out[variant] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                        {k: t.detach().clone() for k, t in model.module.state_dict().items()},
+                        torch.cuda.max_memory_allocated() / 1e9)
         del model, state
         torch.cuda.empty_cache()
     return out
 
 
-def _train_run(ckdir, num_steps, fault=-1):
+def _train_run(ckdir, num_steps, fault=-1, name="i3d"):
     """``train()`` (warmup 2, a checkpoint every 2 steps) over a
     :class:`SeededBatches` stream, resumed with its data state where
     ``ckdir`` holds one: returns (the step, generator state and lr at the
@@ -1301,7 +1358,7 @@ def _train_run(ckdir, num_steps, fault=-1):
     from asltpu_torch.data.loader import ResumableIterator
     from asltpu_torch.train import loop
 
-    model = api.build_trainable("i3d", seed=SEED)
+    model = api.build_trainable(name, seed=SEED)
     cfg = model.cfg
     shape = (TRAIN_BATCH, cfg.preprocess.num_frames, *cfg.preprocess.staged_frame_shape)
     stream = SeededBatches(shape, cfg.num_classes, model.device)
@@ -1326,13 +1383,86 @@ def _train_run(ckdir, num_steps, fault=-1):
             losses, stream.taken)
 
 
-def phase_train():
-    """I3D fine-tuning at full width on the card (module docstring,
-    phase 15). Returns the rgb kernel's launches by path."""
+def _train_and_eval(name, cfg, batches, eval_set, num_steps):
+    """The main path of a family's training: ``train()`` over ``batches``
+    (warmup 2) with its eval on ``eval_set`` at the end and keep-best, the
+    kernels' counts set to 0 just before it; the rgb kernel's launches in
+    the train steps (read when the eval begins) and in the eval. Returns
+    (state, losses, launches, best metric)."""
     from asltpu_torch import api, ckpt
     from asltpu_torch.config import TrainConfig
     from asltpu_torch.ops import preprocess_kernels as k
     from asltpu_torch.train import loop
+
+    counts = {}
+
+    def eval_batches():
+        counts["before_eval"] = k.preprocess_rgb.launches
+        return eval_set
+
+    losses = []
+    with tempfile.TemporaryDirectory(prefix="asltpu_torch_train_") as ckdir:
+        learner = api.build_trainable(name, seed=SEED)
+        tcfg = TrainConfig(batch_size=TRAIN_BATCH, num_steps=num_steps, warmup_steps=2,
+                           log_every=1, eval_every=num_steps, ckpt_every=10_000,
+                           ckpt_dir=ckdir)
+        torch.cuda.synchronize()
+        k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+        state = loop.train(learner.module, tcfg, batches, pp_cfg=cfg.preprocess,
+                           metric_writer=lambda s, m: losses.append(m.get("loss")),
+                           eval_batches=eval_batches)
+        torch.cuda.synchronize()
+        launches = {f"{name}/train": counts["before_eval"],
+                    f"{name}/eval": k.preprocess_rgb.launches - counts["before_eval"]}
+        best = ckpt.load_best_metric(ckdir)
+    want = {f"{name}/train": num_steps, f"{name}/eval": len(eval_set)}
+    assert state.step == num_steps and launches == want, launches
+    assert k.preprocess_yuv420.launches == 0
+    train_losses = [x for x in losses if x is not None]
+    if not np.isfinite(train_losses).all():
+        raise AssertionError(f"{name} train: losses not finite: {train_losses}")
+    return state, train_losses, launches, best
+
+
+def _resume_check(name):
+    """Two uninterrupted runs and the cut run before its fault give the
+    spread; the run cut at step 5 (after the step-4 checkpoint) resumes in
+    this process and must continue the uninterrupted run."""
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="asltpu_torch_resume_") as root:
+        for run, fault in (("a", -1), ("b", -1), ("cut", 5), ("resumed", -1)):
+            ckdir = os.path.join(root, "cut" if run == "resumed" else run)
+            runs[run] = _train_run(ckdir, 6, fault, name)
+            torch.cuda.empty_cache()
+    whole = [runs[n][1] for n in ("a", "b", "cut")]
+    spread = max(abs(x[s] - y[s]) for i, x in enumerate(whole) for y in whole[i + 1:]
+                 for s in x if s in y)
+    a, resumed = runs["a"][1], runs["resumed"][1]
+    resume_err = max(abs(resumed[s] - a[s]) for s in resumed)
+    bound = max(TRAIN_RESUME_SPREADS * spread,
+                TRAIN_RESUME_FLOOR * max(abs(x) for run in whole for x in run.values()))
+    # The loop pulls one batch more than it runs when it stops.
+    consumed = runs["resumed"][2][:len(resumed)]
+    end, want_end = runs["resumed"][0], runs["a"][0]
+    resume = {"steps_resumed": sorted(resumed), "batches_consumed": consumed,
+              "spread_of_runs_not_cut": spread, "max_loss_err_vs_uninterrupted": resume_err,
+              "bound": bound, "losses_uninterrupted": [a[s] for s in sorted(a)],
+              "losses_cut_then_resumed": [runs["cut"][1][s] for s in sorted(runs["cut"][1])]
+              + [resumed[s] for s in sorted(resumed)],
+              "generator_state_equal": bool(torch.equal(end[1], want_end[1])),
+              "lr": end[2], "lr_uninterrupted": want_end[2]}
+    if (end[0] != 6 or sorted(resumed) != [5, 6] or consumed != [4, 5]
+            or sorted(runs["cut"][1]) != [1, 2, 3, 4, 5] or not resume["generator_state_equal"]
+            or end[2] != want_end[2] or resume_err > bound):
+        raise AssertionError(f"{name} train: resume does not continue the run: {resume}")
+    return resume
+
+
+def phase_train():
+    """I3D fine-tuning at full width on the card, then the other families'
+    training (module docstring, phase 15). Returns the rgb kernel's
+    launches by path."""
+    from asltpu_torch import api
 
     model = api.build_trainable("i3d", seed=SEED)
     cfg = model.cfg
@@ -1369,67 +1499,14 @@ def phase_train():
 
     # The main path: train() for 10 steps on one fixed batch (warmup 2),
     # then its eval; the kernel's launches counted per path.
-    eval_shape = (TRAIN_BATCH,) + shape[1:]
-    eval_stream = SeededBatches(eval_shape, cfg.num_classes, torch.device("cuda"),
-                                seed=SEED + 14)
+    eval_stream = SeededBatches(shape, cfg.num_classes, torch.device("cuda"), seed=SEED + 14)
     eval_set = [next(eval_stream) for _ in range(2)]
-    counts = {}
-
-    def eval_batches():
-        counts["before_eval"] = k.preprocess_rgb.launches
-        return eval_set
-
-    fixed = [(batch, labels)] * 10
-    losses = []
-    with tempfile.TemporaryDirectory(prefix="asltpu_torch_train_") as ckdir:
-        learner = api.build_trainable("i3d", seed=SEED)
-        tcfg = TrainConfig(batch_size=TRAIN_BATCH, num_steps=10, warmup_steps=2, log_every=1,
-                           eval_every=10, ckpt_every=10_000, ckpt_dir=ckdir)
-        torch.cuda.synchronize()
-        k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
-        state = loop.train(learner.module, tcfg, fixed, pp_cfg=cfg.preprocess,
-                           metric_writer=lambda s, m: losses.append(m.get("loss")),
-                           eval_batches=eval_batches)
-        torch.cuda.synchronize()
-        launches = {"i3d/train": counts["before_eval"],
-                    "i3d/eval": k.preprocess_rgb.launches - counts["before_eval"]}
-        best = ckpt.load_best_metric(ckdir)
-    train_losses = [x for x in losses if x is not None]
-    assert state.step == 10 and launches == {"i3d/train": 10, "i3d/eval": 2}, launches
-    assert k.preprocess_yuv420.launches == 0
-    if not (np.isfinite(train_losses).all() and train_losses[-1] < train_losses[0]):
+    state, train_losses, launches, best = _train_and_eval(
+        "i3d", cfg, [(batch, labels)] * 10, eval_set, 10)
+    if not train_losses[-1] < train_losses[0]:
         raise AssertionError(f"train: the loss did not fall on a fixed batch: {train_losses}")
-    del state, learner
-
-    # Resume: two uninterrupted runs and the cut run before its fault give
-    # the spread; the run cut at step 5 (after the step-4 checkpoint)
-    # resumes in this process.
-    runs = {}
-    with tempfile.TemporaryDirectory(prefix="asltpu_torch_resume_") as root:
-        for name, fault in (("a", -1), ("b", -1), ("cut", 5), ("resumed", -1)):
-            ckdir = os.path.join(root, "cut" if name == "resumed" else name)
-            runs[name] = _train_run(ckdir, 6, fault)
-            torch.cuda.empty_cache()
-    whole = [runs[n][1] for n in ("a", "b", "cut")]
-    spread = max(abs(x[s] - y[s]) for i, x in enumerate(whole) for y in whole[i + 1:]
-                 for s in x if s in y)
-    a, resumed = runs["a"][1], runs["resumed"][1]
-    resume_err = max(abs(resumed[s] - a[s]) for s in resumed)
-    bound = TRAIN_RESUME_SPREADS * spread
-    # The loop pulls one batch more than it runs when it stops.
-    consumed = runs["resumed"][2][:len(resumed)]
-    end, want_end = runs["resumed"][0], runs["a"][0]
-    resume = {"steps_resumed": sorted(resumed), "batches_consumed": consumed,
-              "spread_of_runs_not_cut": spread, "max_loss_err_vs_uninterrupted": resume_err,
-              "bound": bound, "losses_uninterrupted": [a[s] for s in sorted(a)],
-              "losses_cut_then_resumed": [runs["cut"][1][s] for s in sorted(runs["cut"][1])]
-              + [resumed[s] for s in sorted(resumed)],
-              "generator_state_equal": bool(torch.equal(end[1], want_end[1])),
-              "lr": end[2], "lr_uninterrupted": want_end[2]}
-    if (end[0] != 6 or sorted(resumed) != [5, 6] or consumed != [4, 5]
-            or sorted(runs["cut"][1]) != [1, 2, 3, 4, 5] or not resume["generator_state_equal"]
-            or end[2] != want_end[2] or resume_err > bound):
-        raise AssertionError(f"train: resume does not continue the run: {resume}")
+    del state
+    resume = _resume_check("i3d")
 
     del batch
     torch.cuda.empty_cache()
@@ -1437,6 +1514,115 @@ def phase_train():
           "compute_dtype": cfg.compute_dtype, "param_dtype": "float32", "remat": True,
           "launches": launches, "first_step": checks, "learning_losses": train_losses,
           "best": best, "resume": resume})
+    for name in TRAIN_FAMILIES:
+        launches.update(_train_family(name))
+    return launches
+
+
+def _train_timing(name, cfg, batch_in, labels):
+    """The family's train step at full width, timed by CUDA events (input
+    and labels varied from step to step, as the bench's ``i3d:train``
+    cell), its peak memory and its GFLOP per clip of forward + backward."""
+    from asltpu_torch import api
+    from asltpu_torch.benchmark import Clock, train_gflops
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.train import loop
+
+    model = api.build_trainable(name, seed=SEED)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, num_steps=1000, warmup_steps=100)
+    state = loop.create_train_state(model.module, tcfg, SEED)
+    step_fn = loop.make_step_fn(tcfg, cfg.preprocess)
+    frames, *extras = batch_in if isinstance(batch_in, tuple) else (batch_in,)
+    inputs = [(_with_landmarks(frames + k, extras[0] if extras else None),
+               (labels + k) % cfg.num_classes) for k in range(2)]
+    turn = [0]
+
+    def step():
+        b, y = inputs[turn[0] % 2]
+        turn[0] += 1
+        return step_fn(state, b, y)
+
+    ms = Clock(torch.device("cuda"), reps=5, samples=SAMPLES, warmup=3).ms(step)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gflops = train_gflops(state, step_fn, *inputs[0]) / TRAIN_BATCH
+    del model, state, inputs
+    torch.cuda.empty_cache()
+    clips = TRAIN_BATCH * 1e3 / ms
+    return {"ms_per_step": ms, "clips_per_s": clips, "peak_mem_gb": peak,
+            "gflops_per_clip": gflops,
+            "mfu": gflops * 1e9 * clips / PEAK_BF16_FLOP_PER_S}
+
+
+def _train_family(name):
+    """``name``'s training at full width (module docstring, phase 15):
+    the first step against its plain-preprocess twin, the fp32 step on the
+    card against the CPU, the main path (``train()`` with eval; for
+    ``mobilenet_gru`` 10 steps on a fixed batch that the loss must fall
+    on, then a fault and resume), the step's timings. Emits its line and
+    prints the timings, each on a line of its own; returns the rgb
+    kernel's launches by path."""
+    from asltpu_torch import api
+
+    model = api.build_trainable(name, seed=SEED)
+    cfg = model.cfg
+    want = {key: getattr(cfg, key) for key in FAMILIES[name]["config"]}
+    assert want == FAMILIES[name]["config"], (name, want)
+    assert cfg.compute_dtype == "bfloat16" and cfg.preprocess.crop == 224, cfg
+    assert cfg.preprocess.staged_frame_shape == (256, 256, 3)
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in model.module.parameters())
+    t = cfg.preprocess.num_frames
+    shape = (TRAIN_BATCH, t, *cfg.preprocess.staged_frame_shape)
+    lm = _train_landmarks(name, TRAIN_BATCH, t, SEED + 15, model.device)
+    del model
+    batch, labels = next(SeededBatches(shape, cfg.num_classes, torch.device("cuda"),
+                                       seed=SEED + 13, landmarks=lm))
+
+    first = _first_steps(batch, labels, name, (
+        ("kernel", {}), ("plain", {"preprocess": {"use_pallas": False}})))
+    (k_loss, k_norm, _, k_peak), (p_loss, p_norm, _, _) = first["kernel"], first["plain"]
+    checks = {"loss": k_loss, "grad_norm": k_norm, "loss_plain": p_loss,
+              "grad_norm_rel_err_vs_plain": abs(k_norm - p_norm) / abs(p_norm),
+              "plain_rtol": [0.0, TRAIN_PLAIN_GRAD_RTOL], "peak_gb": k_peak}
+    del first
+    if k_loss != p_loss or checks["grad_norm_rel_err_vs_plain"] > TRAIN_PLAIN_GRAD_RTOL:
+        raise AssertionError(f"{name} train step: kernel vs plain preprocess disagree: "
+                             f"{checks}")
+    checks["card_vs_cpu"] = _train_card_vs_cpu(name)
+
+    eval_stream = SeededBatches(shape, cfg.num_classes, torch.device("cuda"),
+                                seed=SEED + 14, landmarks=lm)
+    eval_set = [next(eval_stream) for _ in range(2)]
+    learns = name == "mobilenet_gru"
+    steps = 10 if learns else TRAIN_SHORT_STEPS
+    state, losses, launches, best = _train_and_eval(
+        name, cfg, [(batch, labels)] * steps, eval_set, steps)
+    del state
+    line = {"phase": "train", "family": name, "input": list(shape),
+            "landmarks": None if lm is None else list(lm.shape), "batch": TRAIN_BATCH,
+            "compute_dtype": cfg.compute_dtype, "param_dtype": "float32",
+            "launches": launches, "first_step": checks, "losses": losses, "best": best}
+    if learns:
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name} train: the loss did not fall on a fixed batch: "
+                                 f"{losses}")
+        line["resume"] = _resume_check(name)
+    timing = _train_timing(name, cfg, batch, labels)
+    line["timing"] = timing
+    del batch, eval_set
+    torch.cuda.empty_cache()
+    emit(line)
+    print(f"{name} train step ms (cuda events, median, batch {TRAIN_BATCH}): "
+          f"{timing['ms_per_step']}", flush=True)
+    print(f"{name} train clips/s: {timing['clips_per_s']}", flush=True)
+    print(f"{name} train peak GB: {timing['peak_mem_gb']}", flush=True)
+    print(f"{name} train GFLOP per clip (forward + backward): {timing['gflops_per_clip']}",
+          flush=True)
+    print(f"{name} train MFU: {timing['mfu']}", flush=True)
     return launches
 
 

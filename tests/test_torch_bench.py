@@ -167,3 +167,23 @@ def test_bench_i3d_train_cell_on_cpu(capsys):
         assert cell["steps_per_s"] > 0 and cell["clips_per_s"] == 2 * cell["steps_per_s"]
         assert 0 < cell["recompute_gflops_per_clip"] < cell["gflops_per_clip"] / 3
     assert cells[0]["gflops_per_clip"] == cells[1]["gflops_per_clip"]
+
+
+def test_train_gflops_counts_a_grouped_conv_weight_gradient_per_group():
+    """A depthwise conv's backward does twice its forward's operations
+    (input and weight gradients); torch's own formula counts the weight
+    gradient as a dense conv's, ``groups`` times too many."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    conv = torch.nn.Conv2d(8, 8, 3, padding=1, groups=8, bias=False)
+    x = torch.randn(2, 8, 6, 6, requires_grad=True)
+    with FlopCounterMode(display=False) as fwd:
+        conv(x)
+
+    def step(state, batch_in, labels):
+        conv(batch_in).sum().backward()
+
+    assert benchmark.train_gflops(None, step, x, None) * 1e9 == 3 * fwd.get_total_flops()
+    with FlopCounterMode(display=False) as torch_count:
+        step(None, x, None)
+    assert torch_count.get_total_flops() == (2 + 8) * fwd.get_total_flops()

@@ -293,8 +293,7 @@ def test_fused_backbone_matches_module_on_the_card(card):
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = 1.0
     with torch.no_grad():
-        features.train()(calib.permute(0, 3, 1, 2).to(torch.bfloat16))
-    features.eval()
+        features(calib.permute(0, 3, 1, 2).to(torch.bfloat16), train=True)
     before = mb.fused_mbconv_s1.launches
     got = fused_backbone_apply(features, frames)
     torch.cuda.synchronize()

@@ -371,8 +371,7 @@ def test_fused_layers_match_jax_layers(width1_backbones):
             m.momentum = 1.0
     calib = np.random.default_rng(7).standard_normal((8, 32, 32, 3)).astype(np.float32)
     with torch.no_grad():
-        cal.train()(torch.from_numpy(calib).permute(0, 3, 1, 2))
-    cal.eval()
+        cal(torch.from_numpy(calib).permute(0, 3, 1, 2), train=True)
     sd = {f"features.{key}": t.numpy() for key, t in cal.state_dict().items()}
     jv = jckpt.import_mobilenetv2(sd, v, prefix="")
     y = torch.from_numpy(frames).bfloat16()

@@ -287,12 +287,26 @@ def test_checkpoints_prune_and_load_for_inference(tmp_path):
 
 
 def test_only_trainable_families_build_and_masters_are_fp32():
+    """Every family builds to train: fp32 masters, computing in its
+    config's dtype (bf16 for the video families, fp32 for pose_bilstm)."""
     model = tapi.build_trainable("i3d", device="cpu", num_classes=5)
     assert model.module.training and model.module.remat
     assert model.module.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.module.parameters())
-    with pytest.raises(NotImplementedError, match="11b"):
-        tapi.build_trainable("mobilenet_gru", device="cpu")
+    small = {"mobilenet_gru": dict(width_mult=0.35, gru_hidden=16),
+             "resnet_transformer": dict(d_model=32, num_heads=4, num_tx_layers=1),
+             "two_stream": dict(width_mult=0.35, d_model=32, num_heads=4), "pose_bilstm": POSE}
+    built = {"i3d"}
+    for name, over in small.items():
+        m = tapi.build_trainable(name, device="cpu", **{"num_classes": 5, **over})
+        assert isinstance(m.cfg, tapi.TRAINABLE), name
+        assert all(p.dtype == torch.float32 for p in m.module.parameters()), name
+        want = torch.float32 if name == "pose_bilstm" else torch.bfloat16
+        assert m.cfg.compute_torch_dtype == want, name
+        assert getattr(m.module, "dtype", torch.float32) == want, name
+        built.add(name)
+    assert built == {"i3d", "pose_bilstm", "mobilenet_gru", "resnet_transformer",
+                     "two_stream"} and len(tapi.TRAINABLE) == 5
     cast = tapi.load_model("pose_bilstm", device="cpu", **POSE)
     tloop.create_train_state(cast.module, TrainConfig())  # pose stays fp32
     bf16 = tapi.load_model("i3d", device="cpu", num_classes=5)
