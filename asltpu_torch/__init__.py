@@ -19,6 +19,13 @@ path:
   - :mod:`asltpu_torch.native`  — the native (C++, g++) batch decoders,
     OpenCV and libav, bound with ctypes.
   - :mod:`asltpu_torch.ckpt`    — weights from the JAX package or ``.pt``.
+  - :mod:`asltpu_torch.train`   — the training loop.
+  - :mod:`asltpu_torch.serve`, :mod:`asltpu_torch.serve_http` — the
+    dynamic-batching server and its HTTP front end.
+  - :mod:`asltpu_torch.windows` — continuous-video recognition by sliding
+    windows.
+  - :mod:`asltpu_torch.cli`     — ``python -m asltpu_torch.cli predict |
+    serve``.
   - :mod:`asltpu_torch.benchmark` — the port's bench
     (``python -m asltpu_torch.benchmark``).
 
@@ -29,8 +36,12 @@ kernels and the native decoders are built on first use.
 __version__ = "0.1.0"
 
 from asltpu_torch.config import (  # noqa: F401
-    CONFIG_REGISTRY,
-    MobileNetV2GRUConfig,
     PreprocessConfig,
+    PoseBiLSTMConfig,
+    MobileNetV2GRUConfig,
+    ResNet18TransformerConfig,
+    I3DConfig,
+    TwoStreamFusionConfig,
     get_config,
+    CONFIG_REGISTRY,
 )

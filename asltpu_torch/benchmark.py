@@ -53,6 +53,17 @@ backward (``FlopCounterMode`` over one step with remat off) with the remat
 recompute counted apart (``recompute_gflops_per_clip``), and on the card
 ``mfu`` (forward + backward, without the recompute) against the bf16 peak.
 
+The ``mobilenet_gru/rgb`` cell also measures serving (``serve``; off with
+``--no-serve``): a closed loop of client threads, each submitting one
+staged clip to a :class:`~asltpu_torch.serve.PredictServer` (batch buckets
+1, 4, 8 and the cell's batch, every bucket run once before the clock
+starts) and waiting for its result before the next, at three points:
+concurrency 1 (``max_delay_ms`` 2, 8 rounds), 4 (5 ms, 8 rounds) and the
+cell's batch (10 ms, 4 rounds). Each point reports clips/s over its wall
+time, the p50 and p99 of submit → result latency on the host clock, the
+server's average batch and the requests timed, under the keys
+``serve_c1_*``, ``serve_c4_*`` and ``serve_*``.
+
 The ``pose_bilstm`` cell has ``device_only`` (no preprocess kernel: its
 ``kernel`` is null with 0 launches, and ``gflops_per_clip`` counts the
 LSTM's and the classifier's multiply-adds from the shapes) and ``stream``
@@ -83,6 +94,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -101,6 +113,7 @@ from asltpu_torch.models.temporal import GRUHead
 from asltpu_torch.models.video import MobileNetV2GRU
 from asltpu_torch.ops import preprocess_kernels
 from asltpu_torch.ops.preprocess import preprocess_clip
+from asltpu_torch.serve import PredictServer
 
 # (family, lane, clips per batch): the JAX bench's batches per family
 # (asltpu/benchmark.py:1298-1304).
@@ -124,6 +137,12 @@ LANES = {
                "host_resize_short": 256, "staging_format": "yuv420"},
 }
 KERNELS = {"rgb": "preprocess_rgb", "yuv420": "preprocess_yuv420"}
+# The cell that measures serving, and its points (the JAX bench's,
+# asltpu/benchmark.py:866-960): (clients (0: the cell's batch),
+# max_delay_ms, rounds per client, key prefix).
+SERVE_CELL = ("mobilenet_gru", "rgb")
+SERVE_BUCKETS = (1, 4, 8)
+SERVE_POINTS = ((1, 2.0, 8, "serve_c1_"), (4, 5.0, 8, "serve_c4_"), (0, 10.0, 4, "serve_"))
 # H100 SXM data sheet: bf16 dense tensor-core peak, and fp32 outside the
 # tensor cores (the pose model runs fp32 with TF32 off).
 PEAK_BF16_FLOP_PER_S = 989e12
@@ -296,6 +315,74 @@ def host_stream(model: api.Model, batches: Sequence[Tuple[np.ndarray, ...]],
         raise AssertionError(f"host stream: {len(batches) - agree} batches' top-1 "
                              "differ from predict on the same frames")
     out["top1_equal_predict"] = True
+    return out
+
+
+def serve_buckets(batch: int) -> Tuple[int, ...]:
+    """``SERVE_BUCKETS`` below ``batch`` (the server adds ``batch``)."""
+    return tuple(b for b in SERVE_BUCKETS if b < batch)
+
+
+def serve_point(model: api.Model, clip: np.ndarray, batch: int, clients: int,
+                max_delay_ms: float, rounds: int, prefix: str) -> Dict[str, object]:
+    """One closed-loop load point: ``clients`` threads each submit
+    ``clip`` ``rounds`` times to a fresh ``PredictServer`` (``max_batch``
+    ``batch``, ``serve_buckets(batch)``), waiting for each result before the next
+    submit. One request goes through first, outside the clock."""
+    server = PredictServer(model, max_batch=batch, max_delay_ms=max_delay_ms,
+                           batch_buckets=serve_buckets(batch))
+    latencies: List[float] = []
+    errors: List[BaseException] = []
+    lock = threading.Lock()
+
+    def client():
+        try:
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                server.submit(clip).result(timeout=600)
+                with lock:
+                    latencies.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — raised below, after the join
+            with lock:
+                errors.append(e)
+
+    try:
+        server.submit(clip).result(timeout=600)
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+    if errors:
+        raise RuntimeError(f"serve {prefix}: {len(errors)} clients failed") from errors[0]
+    ms = sorted(1e3 * x for x in latencies)
+    return {
+        prefix + "clips_per_sec": len(ms) / wall,
+        prefix + "p50_ms": ms[len(ms) // 2],
+        prefix + "p99_ms": ms[min(len(ms) - 1, int(round(0.99 * (len(ms) - 1))))],
+        prefix + "avg_batch": server.stats.avg_batch_size,
+        prefix + "requests": len(ms),
+        prefix + "concurrency": clients,
+        prefix + "max_delay_ms": max_delay_ms,
+    }
+
+
+def serve_curve(model: api.Model, clip: np.ndarray, batch: int) -> Dict[str, object]:
+    """Every point of ``SERVE_POINTS`` for one staged clip, after each
+    bucket ran once on the device (``PredictServer.warm``)."""
+    warm = PredictServer(model, max_batch=batch, batch_buckets=serve_buckets(batch))
+    try:
+        warm.warm()
+    finally:
+        warm.shutdown()
+    out: Dict[str, object] = {"max_batch": batch, "batch_buckets": list(warm.batch_buckets),
+                              "timer": "host clock"}
+    for clients, delay, rounds, prefix in SERVE_POINTS:
+        out.update(serve_point(model, clip, batch, clients or batch, delay, rounds, prefix))
     return out
 
 
@@ -480,6 +567,8 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
     if device.type == "cuda":
         cell["mfu"] = gflops * 1e9 * device_only["clips_per_s"] / PEAK_BF16_FLOP_PER_S
     cell["stream"] = host_stream(model, host, opts.windows)
+    if (family, lane) == SERVE_CELL and opts.serve:
+        cell["serve"] = serve_curve(model, host[0][0][0], batch)
     del host, xs
 
     if corpus is None:
@@ -672,6 +761,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="batches of fresh mp4s through stream_predict")
     ap.add_argument("--clip-size", type=int, default=256)
     ap.add_argument("--clip-frames", type=int, default=50)
+    ap.add_argument("--no-serve", dest="serve", action="store_false",
+                    help="leave out the serving points of the mobilenet_gru/rgb cell")
     opts = ap.parse_args(argv)
     opts.decode_workers = [int(w) for w in opts.decode_workers.split(",")]
     return opts

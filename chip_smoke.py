@@ -131,12 +131,34 @@ phase printing one JSON line:
    clips/s, peak GB, GFLOP per clip of forward + backward
    (``FlopCounterMode``, a grouped conv's weight gradient per group) and
    MFU, each printed on a line of its own.
+16. serve (run after pose_lane) — ``asltpu_torch.serve_http.serve`` at
+   full width: ``mobilenet_gru`` on the rgb lane with its BatchNorm
+   calibrated on 8 other mp4s of the same kind (``max_batch`` 32, buckets
+   1, 4, 8, 32, warmed) answers 12 distinct 320×240 mp4s posted to
+   /predict by 12 client threads at once:
+   each response's top-5 logits within 1e-2 of ``predict`` on the same
+   clip through ``load_clip`` (the same gloss wherever predict's margin
+   exceeds twice that), the logits spreading over ten times the bound
+   and any two clips' logits more than twice it apart,
+   /stats with an average batch above 1; /predict_windows (2 s windows, 1
+   s stride) on a 10 s session against ``predict_windows`` on the same
+   file (spans, ids where the margin allows, probabilities within 5e-3).
+   Then ``two_stream`` (calibrated) on /predict_fusion with seeded
+   landmarks, ``pose_bilstm`` on /predict_landmarks and
+   /predict_windows_landmarks (within 1e-5 of ``predict`` and
+   ``predict_windows_landmarks``), a yuv420-staged ``mobilenet_gru`` on
+   /predict, each against ``predict`` on the same input; every server is
+   shut down and its threads must end. Then ``benchmark.serve_curve`` on
+   the rgb model (p50, p99, clips/s at concurrency 1, 4 and 32) and the
+   host → device copy's share of a batch per bucket, printed on lines of
+   their own at the end.
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
 the train phase sets them to 0 just before each family's ``train()`` run
 and reads its train steps' launches when the run's eval begins, its eval's
-after it.
+after it; phase serve sets them to 0 once each server is warm, just before
+its HTTP requests, and reads them when the responses are in.
 Then the card's ``nvidia-smi`` line, the kernels' JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero; on
 a host without a CUDA device it exits nonzero before doing anything. At the
@@ -1659,6 +1681,346 @@ def phase_bench():
     return result
 
 
+# Phase serve: the HTTP server at full width (module docstring, phase 16).
+SERVE_BUCKETS = (1, 4, 8, 32)
+SERVE_CLIPS = 12
+# A served response against ``predict`` on its own clip, same bf16 model on
+# the card: the preprocess is per pixel and bit-exact, so the two can
+# differ only where cuDNN or cuBLAS takes another algorithm for another
+# batch size (16 frames against a bucket's 16-512) and a bf16 rounding
+# flips. The lanes' bound for logits that differ by a bf16 rounding here
+# and there (LANE_LOGIT_ATOL). The logits of the served clips must spread
+# over SERVE_SPREAD_FACTOR times it, and any two clips' logits differ by
+# more than twice it, so that a response delivered to the wrong request
+# fails.
+SERVE_LOGIT_ATOL = LANE_LOGIT_ATOL
+SERVE_SPREAD_FACTOR = 10
+# A window's softmax probability moves by at most half the largest change
+# of its logits (to first order).
+SERVE_PROB_ATOL = SERVE_LOGIT_ATOL / 2
+# The wire rounds logits and probabilities to 1e-4: a served value lies
+# within half a step of the unrounded one.
+SERVE_WIRE_STEP = 5e-5
+SERVE_SESSION = dict(num_frames=250, fps=25)  # 10 s of untrimmed video
+SERVE_WINDOW_QUERY = "window_s=2.0&stride_s=1.0"
+# The full-width fusion, pose and yuv420 servers: small buckets, a few
+# requests each.
+SERVE_SMALL = dict(max_batch=4, batch_buckets=(1, 4))
+
+
+def _http(base, path, body=None):
+    """(status, JSON) of one request to the server at ``base``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, method="POST" if body else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _post_all(base, path, bodies):
+    """POST every body at once, one client thread each; the (status, JSON)
+    answers in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        return list(pool.map(lambda b: _http(base, path, b), bodies))
+
+
+def _npy(a) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(a))
+    return buf.getvalue()
+
+
+def _top5_err(answer, logits) -> float:
+    """Largest distance of a response's top-5 logits from ``logits`` at the
+    same ids (the response's glosses are ids: no names)."""
+    status, body = answer
+    if status != 200:
+        raise AssertionError(f"served request failed: {status} {body}")
+    return max(abs(e["logit"] - float(logits[e["gloss"]])) for e in body["top5"])
+
+
+def _served_vs_predict(answers, logits_list, atol):
+    """Each response against ``predict``'s logits of its own input: top-5
+    logits within ``atol``, the same gloss wherever predict's margin
+    exceeds twice that. Returns (max error, clips under the top-1 rule)."""
+    errs, covered = [], 0
+    for answer, logits in zip(answers, logits_list):
+        errs.append(_top5_err(answer, logits))
+        top2 = np.sort(logits)[-2:]
+        if top2[1] - top2[0] > 2 * atol:
+            covered += 1
+            if answer[1]["gloss"] != int(np.argmax(logits)):
+                raise AssertionError(f"served gloss {answer[1]['gloss']} != predict's "
+                                     f"{int(np.argmax(logits))} (margin {top2[1] - top2[0]})")
+    if max(errs) > atol + SERVE_WIRE_STEP:
+        raise AssertionError(f"served top-5 logits {max(errs)} from predict's (bound {atol} "
+                             "and the wire's rounding)")
+    return max(errs), covered
+
+
+def _stop(httpd, predictor) -> None:
+    """Stop a server started with ``block=False``: its HTTP loop, its socket
+    and its batcher thread, which must end."""
+    import threading
+
+    httpd.shutdown()
+    httpd.server_close()
+    predictor.shutdown()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and any(
+            t.name in ("asltpu_torch-http", "asltpu_torch-serve") and t.is_alive()
+            for t in threading.enumerate()):
+        time.sleep(0.05)
+    left = [t.name for t in threading.enumerate()
+            if t.name in ("asltpu_torch-http", "asltpu_torch-serve") and t.is_alive()]
+    if predictor._thread.is_alive() or left:
+        raise AssertionError(f"server threads still running after shutdown: {left}")
+
+
+def _calibrated(family, staged):
+    """``load_model(family)`` at full width (bf16) with every BatchNorm's
+    statistics calibrated through its backbone on ``staged``, uint8 clips
+    of the kind it will serve, so that its logits vary from clip to
+    clip."""
+    from asltpu_torch import api
+    from asltpu_torch.benchmark import backbone_and_head
+    from asltpu_torch.ops.preprocess import preprocess_clip
+
+    model = api.load_model(family, seed=SEED)
+    with torch.inference_mode():
+        calib = preprocess_clip(torch.from_numpy(staged).to(model.device),
+                                model.cfg.preprocess)
+    calibrate_bn(model.module, calib, backbone_and_head(model.module)[0])
+    return model
+
+
+def _copy_share(model, clip) -> dict:
+    """The host → device copy's share of a served batch, per bucket: the
+    batcher's steps (pageable copy of the padded uint8 batch, predict,
+    logits back) on the host clock after a synchronise, median of 5."""
+    import statistics
+
+    fn = model.predict_fn()
+    out = {}
+    for b in SERVE_BUCKETS:
+        batch = np.repeat(clip[None], b, axis=0)
+        copies, totals = [], []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = torch.from_numpy(batch).to(model.device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn(x).cpu().numpy()
+            t2 = time.perf_counter()
+            if i >= 2:
+                copies.append(t1 - t0)
+                totals.append(t2 - t0)
+        copy_ms, batch_ms = 1e3 * statistics.median(copies), 1e3 * statistics.median(totals)
+        out[str(b)] = {"copy_ms": copy_ms, "batch_ms": batch_ms, "copy_share": copy_ms / batch_ms,
+                       "copy_mb": batch.nbytes / 1e6}
+    return out
+
+
+def phase_serve():
+    """Serving at full width through ``asltpu_torch.serve_http.serve``:
+    ``mobilenet_gru`` (rgb lane, calibrated BN) answering real HTTP
+    requests from concurrent clients on /predict and /predict_windows, the
+    fusion model on /predict_fusion, the pose model on /predict_landmarks
+    and /predict_windows_landmarks, a yuv420-staged server on /predict;
+    each response against ``predict`` (or ``predict_windows[_landmarks]``)
+    on the same input and model. Then the serving latencies and clips/s at
+    concurrency 1, 4 and 32 (``asltpu_torch.benchmark.serve_curve``) and
+    the copy's share of a batch. Returns the kernels' launches per path."""
+    from asltpu_torch import api
+    from asltpu_torch.benchmark import serve_curve
+    from asltpu_torch.data.decode import decode_record, probe_video
+    from asltpu_torch.data.synthetic import synthetic_landmarks, write_video
+    from asltpu_torch.data.wlasl import ClipRecord
+    from asltpu_torch.ops import preprocess_kernels as k
+    from asltpu_torch.serve_http import serve
+    from asltpu_torch.windows import _resolve_plan, predict_windows, predict_windows_landmarks
+
+    t_phase = time.perf_counter()
+    launches, result = {}, {}
+    with tempfile.TemporaryDirectory(prefix="asltpu_torch_serve_") as d:
+        paths = []
+        for i in range(SERVE_CLIPS):
+            paths.append(os.path.join(d, f"clip{i:02d}.mp4"))
+            write_video(paths[-1], num_frames=40, size=(240, 320), seed=SEED + 100 + i)
+        calib_paths = []
+        for i in range(8):
+            calib_paths.append(os.path.join(d, f"calib{i}.mp4"))
+            write_video(calib_paths[-1], num_frames=40, size=(240, 320), seed=SEED + 200 + i)
+        calib = np.stack([api.load_clip(p) for p in calib_paths])
+        session = os.path.join(d, "session.mp4")
+        write_video(session, size=(240, 320), seed=SEED + 99, **SERVE_SESSION)
+        bodies = []
+        for p in paths + [session]:
+            with open(p, "rb") as f:
+                bodies.append(f.read())
+
+        # mobilenet_gru, rgb lane: /predict from concurrent clients, then
+        # /predict_windows on the untrimmed session.
+        model = _calibrated("mobilenet_gru", calib)
+        for key, want in FAMILIES["mobilenet_gru"]["config"].items():
+            assert getattr(model.cfg, key) == want, key
+        t0 = time.perf_counter()
+        httpd, predictor = serve(model, host="127.0.0.1", port=0, block=False, max_batch=32,
+                                 batch_buckets=SERVE_BUCKETS, warm=True)
+        warm_s = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            torch.cuda.synchronize()
+            k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+            answers = _post_all(base, "/predict", bodies[:SERVE_CLIPS])
+            win_status, win_body = _http(base, f"/predict_windows?{SERVE_WINDOW_QUERY}",
+                                         bodies[-1])
+            torch.cuda.synchronize()
+            launches["mobilenet_gru/serve"] = k.preprocess_rgb.launches
+            stats = _http(base, "/stats")[1]
+        finally:
+            _stop(httpd, predictor)
+        if launches["mobilenet_gru/serve"] < 1 or k.preprocess_yuv420.launches:
+            raise AssertionError(f"serve: rgb kernel launches {launches}")
+        if stats["avg_batch_size"] <= 1:
+            raise AssertionError(f"serve: no batching under concurrent requests: {stats}")
+        clips = [api.load_clip(p, model.cfg.preprocess) for p in paths]
+        want = [api.predict(model, c)[1] for c in clips]
+        spread = float(np.abs(np.stack(want) - np.stack(want).mean(0)).max())
+        pairwise = min(float(np.abs(a - b).max()) for i, a in enumerate(want)
+                       for b in want[i + 1:])
+        err, covered = _served_vs_predict(answers, want, SERVE_LOGIT_ATOL)
+        if spread < SERVE_SPREAD_FACTOR * SERVE_LOGIT_ATOL or pairwise <= 2 * SERVE_LOGIT_ATOL:
+            raise AssertionError(f"serve: logits spread {spread} < {SERVE_SPREAD_FACTOR} x "
+                                 f"{SERVE_LOGIT_ATOL} or two clips' logits within twice it "
+                                 f"({pairwise}; max top-5 logit err {err})")
+        # Windows: the same spans as predict_windows, the same ids wherever
+        # the window's margin (its logits through predict) allows.
+        wins = predict_windows(model, session, window_seconds=2.0, stride_seconds=1.0)
+        total, fps = probe_video(session)
+        spans = _resolve_plan(total, fps, 2.0, None, 1.0, None)
+        _, win_logits = api.predict(model, np.stack([decode_record(ClipRecord(
+            video_id=f"w{s}", gloss="", label=-1, split="", path=session, frame_start=s,
+            frame_end=e), model.cfg.preprocess) for s, e in spans]))
+        if win_status != 200 or win_body["num_windows"] != len(wins) or [
+                (w["start_s"], w["end_s"]) for w in win_body["windows"]] != [
+                (round(w.start_s, 3), round(w.end_s, 3)) for w in wins]:
+            raise AssertionError(f"serve windows: {win_status} {win_body} vs {wins}")
+        prob_err = max(abs(w["prob"] - x.prob) for w, x in zip(win_body["windows"], wins))
+        top2 = np.sort(win_logits, axis=-1)[:, -2:]
+        win_covered = top2[:, 1] - top2[:, 0] > 2 * SERVE_LOGIT_ATOL
+        bad = [i for i, (w, x) in enumerate(zip(win_body["windows"], wins))
+               if win_covered[i] and w["gloss"] != x.gloss_id]
+        if prob_err > SERVE_PROB_ATOL + SERVE_WIRE_STEP or bad:
+            raise AssertionError(f"serve windows vs predict_windows: prob err {prob_err}, "
+                                 f"other gloss at windows {bad}")
+        result["mobilenet_gru"] = {
+            "buckets": list(SERVE_BUCKETS), "warm_s": warm_s, "requests": SERVE_CLIPS,
+            "clip": "40 frames of 320x240 mp4", "launches": launches["mobilenet_gru/serve"],
+            "max_top5_logit_err_vs_predict": err, "atol": SERVE_LOGIT_ATOL,
+            "logit_spread": spread, "min_pairwise_logit_distance": pairwise,
+            "top1_rule_clips": covered,
+            "distinct_top1": len({int(np.argmax(w)) for w in want}), "stats": stats,
+            "windows": {"query": SERVE_WINDOW_QUERY, "num_windows": len(wins),
+                        "max_prob_err_vs_predict_windows": prob_err, "atol": SERVE_PROB_ATOL,
+                        "top1_rule_windows": int(win_covered.sum()),
+                        "segments": len(win_body["segments"])}}
+        # The timings, on the same model: the closed-loop points, and the
+        # copy's share of a batch per bucket.
+        curve = serve_curve(model, clips[0], 32)
+        share = _copy_share(model, clips[0])
+        del model, clips
+        torch.cuda.empty_cache()
+
+        # two_stream on /predict_fusion with seeded landmarks.
+        fusion = _calibrated("two_stream", calib)
+        lm = synthetic_landmarks(3, fusion.cfg.preprocess.num_frames, seed=SEED + 11)
+        httpd, predictor = serve(fusion, host="127.0.0.1", port=0, block=False, warm=True,
+                                 **SERVE_SMALL)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            torch.cuda.synchronize()
+            k.preprocess_rgb.launches = 0
+            answers = _post_all(base, "/predict_fusion", [
+                len(b).to_bytes(8, "big") + b + _npy(x) for b, x in zip(bodies[:3], lm)])
+            torch.cuda.synchronize()
+            launches["two_stream/serve"] = k.preprocess_rgb.launches
+        finally:
+            _stop(httpd, predictor)
+        want = [api.predict(fusion, api.load_clip(p, fusion.cfg.preprocess), x)[1]
+                for p, x in zip(paths[:3], lm)]
+        err, covered = _served_vs_predict(answers, want, SERVE_LOGIT_ATOL)
+        result["two_stream"] = {"requests": 3, "launches": launches["two_stream/serve"],
+                                "max_top5_logit_err_vs_predict": err, "top1_rule_clips": covered}
+        del fusion
+        torch.cuda.empty_cache()
+
+        # A yuv420-staged mobilenet_gru server on /predict.
+        yuv = api.load_model("mobilenet_gru", seed=SEED, preprocess=dict(YUV_LANE))
+        httpd, predictor = serve(yuv, host="127.0.0.1", port=0, block=False, warm=True,
+                                 **SERVE_SMALL)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            torch.cuda.synchronize()
+            k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+            answers = _post_all(base, "/predict", bodies[:3])
+            torch.cuda.synchronize()
+            launches["mobilenet_gru/serve_yuv420"] = k.preprocess_yuv420.launches
+            if k.preprocess_rgb.launches:
+                raise AssertionError("serve_yuv420: the rgb kernel launched")
+        finally:
+            _stop(httpd, predictor)
+        want = [api.predict(yuv, api.load_clip(p, yuv.cfg.preprocess))[1] for p in paths[:3]]
+        err, _ = _served_vs_predict(answers, want, SERVE_LOGIT_ATOL)
+        result["mobilenet_gru_yuv420"] = {"requests": 3,
+                                          "launches": launches["mobilenet_gru/serve_yuv420"],
+                                          "max_top5_logit_err_vs_predict": err}
+        del yuv
+        torch.cuda.empty_cache()
+
+    # pose_bilstm on /predict_landmarks and /predict_windows_landmarks.
+    pose = api.load_model("pose_bilstm", seed=SEED)
+    t = pose.cfg.num_frames
+    lm = synthetic_landmarks(3, t, seed=SEED + 12)
+    stream = synthetic_landmarks(1, SERVE_SESSION["num_frames"], seed=SEED + 13)[0]
+    httpd, predictor = serve(pose, host="127.0.0.1", port=0, block=False, warm=True,
+                             **SERVE_SMALL)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        answers = _post_all(base, "/predict_landmarks", [_npy(x) for x in lm])
+        win_status, win_body = _http(
+            base, f"/predict_windows_landmarks?{SERVE_WINDOW_QUERY}&fps=25", _npy(stream))
+    finally:
+        _stop(httpd, predictor)
+    want = [api.predict(pose, x)[1] for x in lm]
+    err, covered = _served_vs_predict(answers, want, POSE_CPU_ATOL)
+    wins = predict_windows_landmarks(pose, stream, 25.0, window_seconds=2.0,
+                                     stride_seconds=1.0)
+    if win_status != 200 or [w["gloss"] for w in win_body["windows"]] != [
+            w.gloss_id for w in wins]:
+        raise AssertionError(f"serve pose windows: {win_status} {win_body} vs {wins}")
+    prob_err = max(abs(w["prob"] - x.prob) for w, x in zip(win_body["windows"], wins))
+    if prob_err > POSE_CPU_ATOL + SERVE_WIRE_STEP:
+        raise AssertionError(f"serve pose windows: prob err {prob_err}")
+    result["pose_bilstm"] = {"requests": 3, "max_top5_logit_err_vs_predict": err,
+                             "atol": POSE_CPU_ATOL, "windows": len(wins),
+                             "max_window_prob_err": prob_err}
+    del pose
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", **result, "launches_by_path": launches, "timing": curve,
+          "copy_share_by_bucket": share, "seconds": time.perf_counter() - t_phase})
+    return launches, curve, share
+
+
 def _live_children() -> list:
     """(pid, command line) of this process's children that have not exited,
     from ``/proc``; exited ones (zombies) are reaped on the way."""
@@ -1745,14 +2107,18 @@ def _run() -> int:
         raise AssertionError(f"a kernel did not run on its lane: {rgb_by_path}, {yuv}")
     phase_stem()
     phase_pose_lane()
+    served, serve_timing, copy_share = phase_serve()
+    rgb_by_path.update({p: served[p] for p in ("mobilenet_gru/serve", "two_stream/serve")})
+    yuv_by_path = {"mobilenet_gru/yuv420": yuv["preprocess_yuv420"],
+                   "mobilenet_gru/serve_yuv420": served["mobilenet_gru/serve_yuv420"]}
+    if min(*served.values()) < 1:
+        raise AssertionError(f"a kernel did not run on a serve path: {served}")
     phase_bench()
 
     kernels = []
     for lane, fn, by_path, replaces in (
         ("rgb", "preprocess_rgb", rgb_by_path, "asltpu/ops/preprocess_pallas.py:67"),
-        ("yuv420", "preprocess_yuv420",
-         {"mobilenet_gru/yuv420": yuv["preprocess_yuv420"]},
-         "asltpu/ops/preprocess_pallas.py:216"),
+        ("yuv420", "preprocess_yuv420", yuv_by_path, "asltpu/ops/preprocess_pallas.py:216"),
     ):
         t = timing[lane]
         kernels.append({
@@ -1776,6 +2142,15 @@ def _run() -> int:
                "(per shape: phase kernels_mbconv)",
     })
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    # The serving timings (phase serve), each on a line of its own.
+    for clients, prefix in ((1, "serve_c1_"), (4, "serve_c4_"), (32, "serve_")):
+        print(f"serve concurrency {clients} (buckets {serve_timing['batch_buckets']}): "
+              f"p50 {serve_timing[prefix + 'p50_ms']} ms, p99 {serve_timing[prefix + 'p99_ms']}"
+              f" ms, {serve_timing[prefix + 'clips_per_sec']} clips/s, avg batch "
+              f"{serve_timing[prefix + 'avg_batch']}", flush=True)
+    print("serve host-to-device copy share of a batch: " + ", ".join(
+        f"bucket {b} {v['copy_share']} ({v['copy_ms']} of {v['batch_ms']} ms)"
+        for b, v in copy_share.items()), flush=True)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -187,3 +187,31 @@ def test_train_gflops_counts_a_grouped_conv_weight_gradient_per_group():
     with FlopCounterMode(display=False) as torch_count:
         step(None, x, None)
     assert torch_count.get_total_flops() == (2 + 8) * fwd.get_total_flops()
+
+
+def test_serve_points_on_cpu():
+    """The serving part of the mobilenet_gru/rgb cell on a tiny model: three
+    closed-loop points with their keys, each client's rounds all timed,
+    one request a batch at concurrency 1; ``--no-serve`` turns it off."""
+    import numpy as np
+
+    from asltpu_torch import api
+
+    model = api.load_model("mobilenet_gru", device="cpu", num_classes=5, gru_hidden=8,
+                           width_mult=0.35, preprocess={"num_frames": 2,
+                                                        "staging_size": (40, 40),
+                                                        "resize_short": 32, "crop": 32})
+    clip = np.random.default_rng(0).integers(0, 256, (2, 40, 40, 3), np.uint8)
+    out = benchmark.serve_curve(model, clip, batch=8)
+    assert out["batch_buckets"] == [1, 4, 8] and out["max_batch"] == 8
+    for prefix, clients, rounds in (("serve_c1_", 1, 8), ("serve_c4_", 4, 8),
+                                    ("serve_", 8, 4)):
+        assert {prefix + k for k in ("clips_per_sec", "p50_ms", "p99_ms", "avg_batch",
+                                     "requests", "concurrency", "max_delay_ms")} <= set(out)
+        assert out[prefix + "requests"] == clients * rounds
+        assert out[prefix + "concurrency"] == clients
+        assert 0 < out[prefix + "p50_ms"] <= out[prefix + "p99_ms"]
+        assert out[prefix + "clips_per_sec"] > 0 and out[prefix + "avg_batch"] >= 1.0
+    assert out["serve_c1_avg_batch"] == 1.0
+    assert benchmark.parse_args(["--no-serve"]).serve is False
+    assert benchmark.parse_args([]).serve is True

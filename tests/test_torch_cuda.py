@@ -475,3 +475,37 @@ def test_i3d_train_and_eval_steps_on_the_card(card):
     assert got.dtype == torch.bfloat16 and bool(((got.float() - ref).abs() <= ulp).all())
     torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(bn.running_mean, 0.1 * mean, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("lane,pp", [
+    ("rgb", {"num_frames": 3, "staging_size": (64, 80), "resize_short": 56,
+             "crop": 48}),
+    ("yuv420", {"num_frames": 3, "staging_size": (48, 48), "resize_short": 48,
+                "crop": 48, "staging_format": "yuv420"}),
+])
+def test_server_on_the_card_matches_predict(card, lane, pp):
+    """``PredictServer`` on the card: six concurrent requests batched into
+    buckets of 1 and 4 give ``predict``'s logits on the card (fp32, TF32
+    off; other batch sizes may take other cuDNN algorithms), the lane's
+    kernel launches once per batch, and the batcher thread ends on
+    shutdown."""
+    from asltpu_torch.serve import PredictServer
+
+    model = api.load_model("mobilenet_gru", seed=5, num_classes=7, gru_hidden=32,
+                           width_mult=0.35, compute_dtype="float32",
+                           preprocess=dict(pp, out_dtype="float32"))
+    shape = (6, 3, *model.cfg.preprocess.staged_frame_shape)
+    frames = np.random.default_rng(6).integers(0, 256, shape, np.uint8)
+    counter = k.preprocess_rgb if lane == "rgb" else k.preprocess_yuv420
+    server = PredictServer(model, max_batch=4, max_delay_ms=20, batch_buckets=(1, 4))
+    try:
+        server.warm()
+        before = counter.launches
+        futures = [server.submit(f) for f in frames]
+        got = np.stack([f.result(timeout=120)[1] for f in futures])
+        assert counter.launches == before + server.stats.batches
+    finally:
+        server.shutdown()
+    assert not server._thread.is_alive()
+    _, want = api.predict(model, frames)
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)

@@ -26,6 +26,10 @@ train = ("asltpu_torch.train.loop", "asltpu_torch.ops.augment", "asltpu_torch.da
          "asltpu_torch.eval.metrics", "asltpu_torch.ckpt", "asltpu_torch.models.i3d",
          "asltpu_torch.models.bilstm")
 assert set(train) <= set(sys.modules), sorted(set(train) - set(sys.modules))
+serving = ("asltpu_torch.serve", "asltpu_torch.serve_http", "asltpu_torch.windows",
+           "asltpu_torch.cli", "asltpu_torch.cli.main", "asltpu_torch.utils",
+           "asltpu_torch.utils.logging")
+assert set(serving) <= set(sys.modules), sorted(set(serving) - set(sys.modules))
 print("walked", sum(m.startswith("asltpu_torch") for m in sys.modules))
 """
 
@@ -41,6 +45,21 @@ def test_package_imports_no_jax_and_no_asltpu():
     proc = _run(_WALK)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 25
+
+
+def test_top_level_names_include_the_jax_packages():
+    """``asltpu_torch`` re-exports every config name that ``asltpu``
+    re-exports, each the port's own."""
+    import asltpu
+    import asltpu.config
+    import asltpu_torch
+    import asltpu_torch.config
+
+    names = {n for n in dir(asltpu) if not n.startswith("_") and hasattr(asltpu.config, n)}
+    assert len(names) == 8 and {"I3DConfig", "TwoStreamFusionConfig"} <= names
+    assert names <= set(dir(asltpu_torch)), sorted(names - set(dir(asltpu_torch)))
+    for n in names:
+        assert getattr(asltpu_torch, n) is getattr(asltpu_torch.config, n)
 
 
 # What a spawned decode worker imports, and the other host-side modules.

@@ -10,7 +10,10 @@ statistics and the Adam moments (0.1 × the gradient) move. At this size
 the deepest BatchNorms see 16 values a channel (8 clips × 2 steps × 1²),
 where rounding is amplified: XLA:CPU's fp32 gradient lies 4.2% (global
 norm) from the port's fp64 gradient, the port's fp32 one 0.63%, so the
-gradients are held to the fp64 one and to JAX's at that distance."""
+gradients are held to the fp64 one and to JAX's at that distance. The
+port's fp32 gradient moves with torch's intra-op thread count (0.63% to
+3.1% from the fp64 one over 1–8 threads), so the port runs with one
+thread (``one_torch_thread``)."""
 
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from asltpu_torch.models import common
 from asltpu_torch.ops.preprocess import preprocess_clip
 from asltpu_torch.train import loop as tloop
 from test_torch_models import ATOL, draw_variables
+from test_torch_train_video import one_torch_thread  # noqa: F401 (autouse fixture)
 
 PP = {"num_frames": 16, "staging_size": (40, 48), "resize_short": 36, "crop": 32}
 BATCH = 8

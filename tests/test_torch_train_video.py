@@ -95,7 +95,8 @@ def frames_and_labels(over, seed=0, batch=BATCH):
 
 def draw_train_variables(module, *inputs, seed=0):
     """``draw_variables`` with the parameters it leaves at 0 drawn too: the
-    GRU's (U(−1/√H, 1/√H)) and the CLS token (N(0, 0.02)). A numpy tree."""
+    GRU's and the BiLSTM's (U(−1/√H, 1/√H), as torch initialises them) and
+    the CLS token (N(0, 0.02)). A numpy tree."""
     v = draw_variables(module, *inputs, seed=seed)
     rng = np.random.default_rng(seed + 1)
 
@@ -103,8 +104,8 @@ def draw_train_variables(module, *inputs, seed=0):
         for k, a in node.items():
             if isinstance(a, dict):
                 fill(a)
-            elif re.fullmatch(r"l\d+_(wi|wh|bi|bh)", k):
-                bound = (a.shape[-1] // 3) ** -0.5
+            elif m := re.fullmatch(r"l\d+_(?:(fwd|bwd)_)?(wi|wh|bi|bh|b)", k):
+                bound = (a.shape[-1] // (4 if m.group(1) else 3)) ** -0.5
                 node[k] = rng.uniform(-bound, bound, a.shape).astype(np.float32)
             elif k == "cls":
                 node[k] = rng.normal(0.0, 0.02, a.shape).astype(np.float32)
