@@ -20,12 +20,16 @@ path:
     OpenCV and libav, bound with ctypes.
   - :mod:`asltpu_torch.ckpt`    — weights from the JAX package or ``.pt``.
   - :mod:`asltpu_torch.train`   — the training loop.
+  - :mod:`asltpu_torch.utils`   — logging, per-step metrics, profiling.
   - :mod:`asltpu_torch.serve`, :mod:`asltpu_torch.serve_http` — the
     dynamic-batching server and its HTTP front end.
   - :mod:`asltpu_torch.windows` — continuous-video recognition by sliding
     windows.
+  - :mod:`asltpu_torch.export`  — the inference program exported with
+    ``torch.export`` (the CUDA preprocess kernel inside), loaded with no
+    model code.
   - :mod:`asltpu_torch.cli`     — ``python -m asltpu_torch.cli predict |
-    serve``.
+    serve | train | eval | export | landmarks | bench``.
   - :mod:`asltpu_torch.benchmark` — the port's bench
     (``python -m asltpu_torch.benchmark``).
 

@@ -48,6 +48,7 @@ from asltpu_torch.config import (
 from asltpu_torch.data.decode import decode_clip, make_decode_pool
 from asltpu_torch.data.pad import pad_to_batch
 from asltpu_torch.data.prefetch import Prefetcher, resolve_device
+from asltpu_torch.data.wlasl import gloss_label  # noqa: F401  (part of the API)
 from asltpu_torch.models.bilstm import PoseBiLSTM
 from asltpu_torch.models.common import cast_for_compute, init_weights
 from asltpu_torch.models.fusion import TwoStreamFusion
@@ -56,15 +57,6 @@ from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
 from asltpu_torch.ops.preprocess import preprocess_clip
 
 _log = logging.getLogger("asltpu_torch.stream")
-
-
-def gloss_label(idx, gloss_names=None):
-    """Gloss id → display label, falling back to the integer id when the
-    supplied name list is shorter than the model's class count."""
-    i = int(idx)
-    if gloss_names is not None and 0 <= i < len(gloss_names):
-        return gloss_names[i]
-    return i
 
 
 def build_module(cfg: ModelConfig) -> nn.Module:

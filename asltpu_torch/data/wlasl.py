@@ -41,6 +41,15 @@ class ClipRecord:
     bbox: Optional[Tuple[int, int, int, int]] = None
 
 
+def gloss_label(idx, gloss_names=None):
+    """Gloss id → display label, falling back to the integer id when the
+    supplied name list is shorter than the model's class count."""
+    i = int(idx)
+    if gloss_names is not None and 0 <= i < len(gloss_names):
+        return gloss_names[i]
+    return i
+
+
 class WLASLIndex:
     """Parsed WLASL index restricted to a K-gloss subset."""
 

@@ -4,12 +4,14 @@ accuracy, and a WLASL split through ``stream_predict``. Counterpart of
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, Optional, Sequence
 
 import numpy as np
 
-from asltpu_torch.api import Model, gloss_label, stream_predict
-from asltpu_torch.data.wlasl import ClipRecord
+from asltpu_torch.data.wlasl import ClipRecord, gloss_label
+
+if TYPE_CHECKING:
+    from asltpu_torch.api import Model
 
 
 def topk_entries(logits, gloss_names=None, k: int = 5):
@@ -75,6 +77,8 @@ def evaluate_split(
     ``skip_errors`` undecodable clips are dropped, counted in
     ``num_skipped`` and left out of the denominator; ``per_class`` adds
     :func:`per_class_metrics`."""
+    from asltpu_torch.api import stream_predict
+
     records = [r for r in records if r.path][:max_clips]
     results = list(stream_predict(
         model, records, batch_size=batch_size, num_decode_workers=num_decode_workers,

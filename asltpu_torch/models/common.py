@@ -188,13 +188,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random initialisation, in place: convs (2D and 3D)
     kaiming-normal over fan-out with a zero bias where they have one, BN as
     identity (torchvision's MobileNetV2 and ResNet),
-    linears as ``nn.Linear``'s default, LayerNorm as identity, attention's
+    linears (and I3D's 1×1×1 logits) as ``nn.Linear``'s default, LayerNorm
+    as identity, attention's
     packed q/k/v projection as ``nn.MultiheadAttention``'s (Xavier-uniform,
     zero bias), GRUs and LSTMs U(-1/√H, 1/√H), the transformer's CLS token
     and positions truncated-normal (std 0.02), the fusion model's positions
     too."""
     # These modules import this one.
     from asltpu_torch.models.fusion import TwoStreamFusion
+    from asltpu_torch.models.i3d import Logits
     from asltpu_torch.models.temporal import TransformerHead
     from asltpu_torch.ops.recurrent import GRU
 
@@ -220,6 +222,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 k = 1.0 / math.sqrt(m.hidden_size)
                 for p in m.parameters():
                     p.uniform_(-k, k, generator=generator)
+        # I3D's classifier is a 1×1×1 conv, drawn above as one; it is a dense
+        # layer over 1024 features.
+        for m in module.modules():
+            if isinstance(m, Logits):
+                m.reset_parameters(generator)
 
 
 def cast_for_compute(module: nn.Module, dtype: torch.dtype,

@@ -29,6 +29,7 @@ compute dtype is ``dtype``; fp32 master weights are cast inside each conv.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -130,6 +131,15 @@ class Logits(nn.Module):
     def __init__(self, in_ch: int, num_classes: int):
         super().__init__()
         self.conv3d = nn.Conv3d(in_ch, num_classes, 1, bias=True)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """As ``nn.Linear``'s default, U(−1/√in, 1/√in): a classifier, like
+        the JAX package's ``Dense`` over its input width; a conv's
+        fan-out init would scale it by the class count."""
+        bound = 1.0 / math.sqrt(self.conv3d.in_channels)
+        with torch.no_grad():
+            self.conv3d.weight.uniform_(-bound, bound, generator=generator)
+            self.conv3d.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.conv3d.weight

@@ -16,15 +16,27 @@ kernel stages each band of output rows' input rows in shared memory with
 16-byte copies (:func:`rgb_band_plan` sizes the bands; the C side lays out
 the shared memory); the source file says more.
 
-For a CPU tensor a wrapper returns its plain version, which is also what the
+Each kernel is a ``torch.library`` custom op, ``asltpu_torch::preprocess_rgb``
+and ``asltpu_torch::preprocess_yuv420``, whose arguments are the tensor and
+primitives (resize_short, crop, mean, std, out dtype), with a fake
+implementation that gives the output's shape and dtype. So ``torch.export``
+traces a call into the exported program (:mod:`asltpu_torch.export`), and
+the program launches the hand-written kernel when it runs, on the caller's
+current stream; ``predict``, the train step and export all reach the kernel
+through the op. Registering the ops builds nothing: nvcc runs at the first
+launch. The wrappers ``preprocess_rgb(frames, cfg)`` and
+``preprocess_yuv420(planes, cfg)`` call the ops.
+
+For a CPU tensor an op returns its plain version, which is also what the
 tests and ``chip_smoke.py`` hold the kernel against on the card:
 
 - rgb: :func:`asltpu_torch.ops.preprocess.preprocess_clip_mm`, the fp32
   sampling-matrix contractions;
 - yuv420: :func:`asltpu_torch.ops.preprocess.preprocess_clip_yuv420`.
 
-For a CUDA tensor a wrapper launches its kernel or raises; there is no
-fallback. Each launch adds one to the wrapper's ``launches`` attribute.
+For a CUDA tensor an op launches its kernel or raises; there is no
+fallback. Each launch adds one to the wrapper's ``launches`` attribute,
+inside an exported program too.
 """
 
 from __future__ import annotations
@@ -32,12 +44,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from asltpu_torch.config import PreprocessConfig
+from asltpu_torch.data.staging import resize_plan
 from asltpu_torch.ops import _build, resize_mm
 from asltpu_torch.ops.preprocess import (
     _BT601_CUB,
@@ -45,7 +58,6 @@ from asltpu_torch.ops.preprocess import (
     _BT601_CVG,
     _BT601_CVR,
     _BT601_CY,
-    _thin_mode_identity,
     preprocess_clip_mm,
     preprocess_clip_yuv420,
 )
@@ -241,8 +253,6 @@ def _yuv_constants(
 
 
 def _check_cuda_input(x: torch.Tensor, rank: int, name: str) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype != torch.uint8:
         raise ValueError(f"{name}: expected uint8 frames, got {x.dtype}")
     if x.dim() != rank:
@@ -253,8 +263,7 @@ def _check_cuda_input(x: torch.Tensor, rank: int, name: str) -> None:
         raise ValueError(f"{name}: frames must be contiguous")
 
 
-def _out_flag(cfg: PreprocessConfig, name: str) -> int:
-    dtype = cfg.out_torch_dtype
+def _out_flag(dtype: torch.dtype, name: str) -> int:
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: out_dtype must be bfloat16 or float32, got {dtype}")
     return int(dtype == torch.bfloat16)
@@ -265,25 +274,47 @@ def _raise_on_error(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
-def preprocess_rgb(frames_u8: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
-    """[B, T, Hs, Ws, 3] uint8 → [B, T, crop, crop, 3] ``cfg.out_dtype``:
-    short-side bilinear resize, centre crop and normalize."""
-    if frames_u8.device.type == "cpu":
-        return preprocess_rgb_plain(frames_u8, cfg)
+def _plain_cfg(resize_short: int, crop: int, mean: Sequence[float], std: Sequence[float],
+               out_dtype: torch.dtype) -> PreprocessConfig:
+    """The config fields the plain versions read, from the ops' arguments
+    (the plain versions take the staging size from the input's shape)."""
+    return PreprocessConfig(resize_short=resize_short, crop=crop, mean=tuple(mean),
+                            std=tuple(std), out_dtype=str(out_dtype).rsplit(".", 1)[-1])
+
+
+# The ops' schema: the tensor and primitives only, so that an exported
+# program can hold a call. The dispatcher sends a CPU tensor to the plain
+# version and a CUDA one to the kernel; ``register_fake`` gives the output's
+# shape and dtype to ``torch.export``'s tracer. (``torch.library.Library``
+# rather than ``custom_op``: its dispatch adds less host time to each
+# launch, which back-to-back kernel timings show; PERF.md has the numbers.)
+_LIB = torch.library.Library("asltpu_torch", "DEF")
+_ARGS = "int resize_short, int crop, float[] mean, float[] std, ScalarType out_dtype"
+_LIB.define(f"preprocess_rgb(Tensor frames_u8, {_ARGS}) -> Tensor")
+_LIB.define(f"preprocess_yuv420(Tensor planes_u8, {_ARGS}) -> Tensor")
+
+
+def _rgb_plain_op(frames_u8, resize_short, crop, mean, std, out_dtype):
+    return preprocess_rgb_plain(frames_u8, _plain_cfg(resize_short, crop, mean, std, out_dtype))
+
+
+def _rgb_kernel_op(frames_u8: torch.Tensor, resize_short: int, crop: int,
+                   mean: Sequence[float], std: Sequence[float],
+                   out_dtype: torch.dtype) -> torch.Tensor:
     name = "preprocess_rgb"
     _check_cuda_input(frames_u8, 5, name)
     b, t, hs, ws, c = frames_u8.shape
     if c != 3:
         raise ValueError(f"{name}: expected 3 channels, got {c}")
-    out_bf16 = _out_flag(cfg, name)
-    crop, n = cfg.crop, b * t
-    out_bytes = cfg.out_torch_dtype.itemsize
-    plan = rgb_band_plan((hs, ws), cfg.resize_short, crop, out_bytes)
+    out_bf16 = _out_flag(out_dtype, name)
+    n = b * t
+    out_bytes = out_dtype.itemsize
+    plan = rgb_band_plan((hs, ws), resize_short, crop, out_bytes)
     dev = frames_u8.device
     tables, consts = _rgb_constants(
-        dev, (hs, ws), cfg.resize_short, crop, out_bytes, cfg.mean, cfg.std
+        dev, (hs, ws), resize_short, crop, out_bytes, tuple(mean), tuple(std)
     )
-    out = torch.empty((b, t, crop, crop, 3), dtype=cfg.out_torch_dtype, device=dev)
+    out = torch.empty((b, t, crop, crop, 3), dtype=out_dtype, device=dev)
     if n == 0:
         return out
     rc = _lib().asl_preprocess_rgb(
@@ -297,16 +328,36 @@ def preprocess_rgb(frames_u8: torch.Tensor, cfg: PreprocessConfig) -> torch.Tens
     return out
 
 
+_LIB.impl("preprocess_rgb", _rgb_plain_op, "CPU")
+_LIB.impl("preprocess_rgb", _rgb_kernel_op, "CUDA")
+
+
+@torch.library.register_fake("asltpu_torch::preprocess_rgb", lib=_LIB)
+def _rgb_fake(frames_u8, resize_short, crop, mean, std, out_dtype):
+    b, t = frames_u8.shape[:2]
+    return frames_u8.new_empty((b, t, crop, crop, 3), dtype=out_dtype)
+
+
+def preprocess_rgb(frames_u8: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
+    """[B, T, Hs, Ws, 3] uint8 → [B, T, crop, crop, 3] ``cfg.out_dtype``:
+    short-side bilinear resize, centre crop and normalize. Calls the custom
+    op ``asltpu_torch::preprocess_rgb``."""
+    return torch.ops.asltpu_torch.preprocess_rgb.default(
+        frames_u8, cfg.resize_short, cfg.crop, list(cfg.mean), list(cfg.std),
+        cfg.out_torch_dtype)
+
+
 preprocess_rgb.launches = 0
 
 
-def preprocess_yuv420(planes_u8: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
-    """[B, T, Hs·3/2, Ws] packed I420 uint8 → [B, T, Hs, Ws, 3]
-    ``cfg.out_dtype``: BT.601 conversion and normalize. On the card, only
-    the identity-resize configuration (staging == crop², as the dispatcher
-    guarantees) is taken."""
-    if planes_u8.device.type == "cpu":
-        return preprocess_yuv420_plain(planes_u8, cfg)
+def _yuv420_plain_op(planes_u8, resize_short, crop, mean, std, out_dtype):
+    return preprocess_yuv420_plain(planes_u8, _plain_cfg(resize_short, crop, mean, std,
+                                                         out_dtype))
+
+
+def _yuv420_kernel_op(planes_u8: torch.Tensor, resize_short: int, crop: int,
+                      mean: Sequence[float], std: Sequence[float],
+                      out_dtype: torch.dtype) -> torch.Tensor:
     name = "preprocess_yuv420"
     _check_cuda_input(planes_u8, 4, name)
     b, t, hp, ws = planes_u8.shape
@@ -316,16 +367,17 @@ def preprocess_yuv420(planes_u8: torch.Tensor, cfg: PreprocessConfig) -> torch.T
             f"{name}: packed I420 needs Hs % 4 == 0 and even Ws; got planes "
             f"of shape {(hp, ws)}"
         )
-    if (hs, ws) != tuple(cfg.staging_size) or not _thin_mode_identity(cfg):
+    if (hs, ws) != (crop, crop) or resize_plan((hs, ws), resize_short) != (hs, ws):
         raise ValueError(
             f"{name}: the kernel takes identity-resize configurations only "
-            f"(staging == crop²); got planes for {(hs, ws)} with {cfg}"
+            f"(staging == crop²); got planes for {(hs, ws)} with resize_short "
+            f"{resize_short} and crop {crop}"
         )
-    out_bf16 = _out_flag(cfg, name)
+    out_bf16 = _out_flag(out_dtype, name)
     n = b * t
     dev = planes_u8.device
-    consts = _yuv_constants(dev, cfg.mean, cfg.std)
-    out = torch.empty((b, t, hs, ws, 3), dtype=cfg.out_torch_dtype, device=dev)
+    consts = _yuv_constants(dev, tuple(mean), tuple(std))
+    out = torch.empty((b, t, hs, ws, 3), dtype=out_dtype, device=dev)
     if n == 0:
         return out
     rc = _lib().asl_preprocess_yuv420(
@@ -335,6 +387,27 @@ def preprocess_yuv420(planes_u8: torch.Tensor, cfg: PreprocessConfig) -> torch.T
     _raise_on_error(rc, name)
     preprocess_yuv420.launches += 1
     return out
+
+
+_LIB.impl("preprocess_yuv420", _yuv420_plain_op, "CPU")
+_LIB.impl("preprocess_yuv420", _yuv420_kernel_op, "CUDA")
+
+
+@torch.library.register_fake("asltpu_torch::preprocess_yuv420", lib=_LIB)
+def _yuv420_fake(planes_u8, resize_short, crop, mean, std, out_dtype):
+    b, t = planes_u8.shape[:2]
+    return planes_u8.new_empty((b, t, crop, crop, 3), dtype=out_dtype)
+
+
+def preprocess_yuv420(planes_u8: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
+    """[B, T, Hs·3/2, Ws] packed I420 uint8 → [B, T, crop, crop, 3]
+    ``cfg.out_dtype``: BT.601 conversion and normalize. Calls the custom op
+    ``asltpu_torch::preprocess_yuv420``; on the card only the
+    identity-resize configuration (staging == crop², as the dispatcher
+    guarantees) is taken."""
+    return torch.ops.asltpu_torch.preprocess_yuv420.default(
+        planes_u8, cfg.resize_short, cfg.crop, list(cfg.mean), list(cfg.std),
+        cfg.out_torch_dtype)
 
 
 preprocess_yuv420.launches = 0

@@ -152,13 +152,39 @@ phase printing one JSON line:
    the rgb model (p50, p99, clips/s at concurrency 1, 4 and 32) and the
    host → device copy's share of a batch per bucket, printed on lines of
    their own at the end.
+17. export (run after serve) — ``asltpu_torch.export.export_model`` of
+   each config at full width and its bench batch (``mobilenet_gru`` on
+   both lanes, ``resnet_transformer``, ``i3d``, ``two_stream``,
+   ``pose_bilstm``), random weights from the seed, BatchNorm calibrated on
+   varied clips; each artifact's meta must name the kernel op its program
+   calls. A fresh interpreter loads every artifact and runs it on varied
+   clips (and seeded landmarks): ``asltpu_torch.models`` and the api must
+   stay out of its ``sys.modules``, the rgb kernel must launch at least
+   once in each rgb program and the yuv420 kernel in the yuv420 one, and
+   the logits must lie within 1e-2 of the live ``predict_fn``'s (the gap
+   printed). Exported and live device ms by CUDA events, in turns, each
+   printed on a line of its own with the graph's size and its RNN ops.
+18. learn — ``make_separable_wlasl`` (6 glosses, 8 train and 4 val clips
+   each) → ``asl train --model mobilenet_gru`` with the JAX proof's
+   arguments (tests/integration/test_learning.py) and the resumable
+   loader with 4 decode workers: final held-out top-1 ≥ 0.8, every eval
+   scoring all 24 clips; the checkpoint through ``asl eval`` (top-1 ≥ 0.8
+   on the 24), ``asl export`` (the rgb kernel op in its program) and ``asl
+   predict --exported`` on a val clip, whose gloss must be ``asl predict
+   --ckpt``'s. Then the ``pose_bilstm`` (≥ 0.9) and ``two_stream``
+   cross-modal (≥ 0.75) proofs through ``train()``, and 12 full-width ``asl
+   train`` steps (``mobilenet_gru`` defaults, batch 8, no augment, 4 loader
+   workers) with the median step time on the host clock on a line of its
+   own.
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
 the train phase sets them to 0 just before each family's ``train()`` run
 and reads its train steps' launches when the run's eval begins, its eval's
 after it; phase serve sets them to 0 once each server is warm, just before
-its HTTP requests, and reads them when the responses are in.
+its HTTP requests, and reads them when the responses are in; phase export
+counts each artifact's run in the fresh process (``export/<config>``), and
+phase learn counts its ``asl train`` runs (``cli/train``).
 Then the card's ``nvidia-smi`` line, the kernels' JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero; on
 a host without a CUDA device it exits nonzero before doing anything. At the
@@ -1785,16 +1811,16 @@ def _stop(httpd, predictor) -> None:
         raise AssertionError(f"server threads still running after shutdown: {left}")
 
 
-def _calibrated(family, staged):
-    """``load_model(family)`` at full width (bf16) with every BatchNorm's
-    statistics calibrated through its backbone on ``staged``, uint8 clips
-    of the kind it will serve, so that its logits vary from clip to
-    clip."""
+def _calibrated(family, staged, **overrides):
+    """``load_model(family, **overrides)`` at full width (bf16) with every
+    BatchNorm's statistics calibrated through its backbone on ``staged``,
+    uint8 clips of the kind it will serve, so that its logits vary from
+    clip to clip."""
     from asltpu_torch import api
     from asltpu_torch.benchmark import backbone_and_head
     from asltpu_torch.ops.preprocess import preprocess_clip
 
-    model = api.load_model(family, seed=SEED)
+    model = api.load_model(family, seed=SEED, **overrides)
     with torch.inference_mode():
         calib = preprocess_clip(torch.from_numpy(staged).to(model.device),
                                 model.cfg.preprocess)
@@ -2021,6 +2047,331 @@ def phase_serve():
     return launches, curve, share
 
 
+# Phase export: each config's inference program exported with
+# ``asltpu_torch.export`` at full width (module docstring, phase 17).
+EXPORT_CASES = (
+    ("mobilenet_gru/rgb", "mobilenet_gru", RGB_LANE),
+    ("mobilenet_gru/yuv420", "mobilenet_gru", YUV_LANE),
+    ("resnet_transformer/rgb", "resnet_transformer", RGB_LANE),
+    ("i3d/rgb", "i3d", RGB_LANE),
+    ("two_stream/rgb", "two_stream", RGB_LANE),
+    ("pose_bilstm/landmarks", "pose_bilstm", None),
+)
+# Runs in a fresh interpreter: loads each artifact of the directory argv[1]
+# with no model code, runs its inputs through it (the kernels' launches
+# counted per artifact) and prints what it saw as the last line.
+EXPORT_LOADER = """
+import json, sys
+import numpy as np, torch
+from asltpu_torch.export import load_exported
+from asltpu_torch.ops import preprocess_kernels as k
+d = sys.argv[1]
+runs = {}
+for name in json.load(open(d + "/cases.json")):
+    em = load_exported(d + "/" + name)
+    with np.load(d + "/" + name + ".npz") as z:
+        inputs = {key: z[key] for key in z.files}
+    torch.cuda.synchronize()
+    k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+    logits = em.predict_batch(**inputs)
+    torch.cuda.synchronize()
+    np.save(d + "/" + name + ".logits.npy", logits)
+    runs[name] = {"preprocess_rgb": k.preprocess_rgb.launches,
+                  "preprocess_yuv420": k.preprocess_yuv420.launches,
+                  "preprocess": em.meta["preprocess"], "device": str(em.device)}
+model_code = sorted(m for m in sys.modules
+                    if m.startswith(("asltpu_torch.models", "asltpu_torch.api")))
+print(json.dumps({"runs": runs, "model_modules": model_code}))
+"""
+
+
+def _export_inputs(family, cfg, batch):
+    """Seeded inputs of one exported program: varied staged clips and/or
+    landmarks."""
+    from asltpu_torch.data.synthetic import synthetic_landmarks
+
+    inputs = {}
+    if family != "pose_bilstm":
+        pp = cfg.preprocess
+        inputs["frames"] = _varied_clips(SEED + 31, batch, pp.num_frames,
+                                         pp.staged_frame_shape)
+    if family in ("pose_bilstm", "two_stream"):
+        t = cfg.preprocess.num_frames if family == "two_stream" else cfg.num_frames
+        inputs["landmarks"] = synthetic_landmarks(batch, t, seed=SEED + 32)
+    return inputs
+
+
+def phase_export():
+    """Export each config at full width on the card (random weights from
+    the seed, BatchNorm calibrated on varied clips), load every artifact in
+    a fresh process that imports no model code, and hold its logits to the
+    live ``predict_fn``'s; the kernels' launches inside the exported
+    programs; exported and live device ms by CUDA events, in turns. Returns
+    the launches by path."""
+    import subprocess
+
+    from asltpu_torch import api
+    from asltpu_torch.export import export_model, load_exported
+
+    t_phase = time.perf_counter()
+    rows, live_logits = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for path, family, pp in EXPORT_CASES:
+            name = path.replace("/", "-")
+            if family == "pose_bilstm":
+                model, batch = api.load_model(family, seed=SEED), POSE_BATCH
+            else:
+                batch = FAMILIES[family]["batch"]
+                staging = api.get_config(family, preprocess=dict(pp)).preprocess
+                calib = _varied_clips(SEED + 30, 8, staging.num_frames,
+                                      staging.staged_frame_shape)
+                model = _calibrated(family, calib, preprocess=dict(pp))
+            inputs = _export_inputs(family, model.cfg, batch)
+            np.savez(os.path.join(d, name + ".npz"), **inputs)
+            t0 = time.perf_counter()
+            meta = export_model(model, os.path.join(d, name), batch_size=batch)
+            export_s = time.perf_counter() - t0
+            xs = [torch.from_numpy(a).to(model.device) for a in inputs.values()]
+            live = model.predict_fn()
+            live_logits[name] = live(*xs).cpu().numpy()
+            exported = load_exported(os.path.join(d, name))
+            graph = exported.program.graph
+            fn = exported.program.module()
+
+            def run_exported():
+                with torch.inference_mode():
+                    return fn(*xs)
+
+            # Device time in turns: live, exported, exported, live.
+            ms = [time_ms(f, PREDICT_REPS)
+                  for f in (lambda: live(*xs), run_exported, run_exported, lambda: live(*xs))]
+            rows[name] = {
+                "path": path, "batch": batch, "export_s": export_s,
+                "preprocess": meta["preprocess"], "inputs": meta["inputs"],
+                "graph_nodes": len(graph.nodes),
+                "rnn_ops": sorted({str(n.target) for n in graph.nodes
+                                   if n.op == "call_function"
+                                   and any(w in str(n.target) for w in ("lstm", "gru", "rnn"))}),
+                "live_ms": min(ms[0], ms[3]), "exported_ms": min(ms[1], ms[2]),
+                "ms_in_turns": ms,
+            }
+            del model, live, exported, fn, xs
+            torch.cuda.empty_cache()
+        with open(os.path.join(d, "cases.json"), "w") as f:
+            json.dump(list(rows), f)
+        proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, d],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"loading the artifacts in a fresh process failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        for name, row in rows.items():
+            got = np.load(os.path.join(d, name + ".logits.npy"))
+            want = live_logits[name]
+            row.update(loaded["runs"][name])
+            row["max_logit_err_vs_live"] = float(np.abs(got - want).max())
+            row["logit_spread"] = float(np.abs(want - want.mean(0)).max())
+    if loaded["model_modules"]:
+        raise AssertionError(f"loading the artifacts imported model code: "
+                             f"{loaded['model_modules']}")
+    launches = {}
+    for name, row in rows.items():
+        lane = "preprocess_yuv420" if name.endswith("yuv420") else "preprocess_rgb"
+        want_op = None if name.startswith("pose") else "asltpu_torch::" + lane
+        if (row["max_logit_err_vs_live"] > LANE_LOGIT_ATOL or row["preprocess"] != want_op
+                or (want_op and row[lane] < 1)):
+            raise AssertionError(f"export {row['path']}: {row}")
+        if want_op:
+            launches[f"export/{row['path']}"] = row[lane]
+    emit({"phase": "export", "atol": LANE_LOGIT_ATOL, "cases": rows,
+          "loader_model_modules": loaded["model_modules"],
+          "seconds": time.perf_counter() - t_phase})
+    for row in rows.values():
+        print(f"export {row['path']} (batch {row['batch']}): exported {row['exported_ms']} ms, "
+              f"live {row['live_ms']} ms a batch (cuda events); max logit gap "
+              f"{row['max_logit_err_vs_live']}", flush=True)
+    return launches
+
+
+# Phase learn: the learning proofs through the CLI and the library
+# (module docstring, phase 18), with the JAX package's thresholds
+# (tests/integration/test_learning.py).
+LEARN_TOP1 = {"mobilenet_gru": 0.8, "pose_bilstm": 0.9, "two_stream": 0.75}
+LEARN_SMALL = ["--num-classes", "6", "--set", "width_mult=0.5", "--set", "gru_hidden=32"]
+# The model the CLI trains at --frames 4 --crop 32, for eval, export, predict.
+LEARN_MODEL = [*LEARN_SMALL, "--set", "preprocess.num_frames=4",
+               "--set", "preprocess.crop=32", "--set", "preprocess.resize_short=37",
+               "--set", "preprocess.staging_size=(37,37)"]
+LEARN_WORKERS = 4
+FULL_TRAIN_STEPS = 12
+
+
+def _cli(argv):
+    """``asltpu_torch.cli`` in this process; its JSON lines."""
+    import contextlib
+    import io
+
+    from asltpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}")
+    return [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+
+
+def _csv(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def _library_proof(name, cfg_kw, train_set, val_set, steps):
+    """Train ``name`` through ``train()`` on seeded in-memory batches of 16
+    (the JAX proof's loop), eval every 50 steps on the 24 val clips; the
+    eval trajectory."""
+    from asltpu_torch import api
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.train.loop import train
+
+    model = api.build_trainable(name, seed=SEED, **cfg_kw)
+    *tr_x, tr_y = train_set
+    *va_x, va_y = val_set
+
+    def pick(xs, idx):
+        return tuple(x[idx] for x in xs) if len(xs) > 1 else xs[0][idx]
+
+    def batches():
+        rng = np.random.default_rng(1)
+        while True:
+            idx = rng.choice(len(tr_y), 16, replace=False)
+            yield pick(tr_x, idx), tr_y[idx]
+
+    def eval_batches():
+        for i in range(0, len(va_y), 16):
+            yield pick(va_x, slice(i, i + 16)), va_y[i:i + 16]
+
+    evals = []
+    with tempfile.TemporaryDirectory() as ck:
+        tcfg = TrainConfig(batch_size=16, num_steps=steps, warmup_steps=10, learning_rate=3e-3,
+                           log_every=1000, eval_every=50, ckpt_every=100_000, ckpt_dir=ck)
+        train(model.module, tcfg, batches(), eval_batches=eval_batches,
+              metric_writer=lambda step, m: evals.append(
+                  (step, m["eval_top1"], m["eval_clips"])) if "eval_top1" in m else None)
+    if evals[-1][0] != steps or evals[-1][1] < LEARN_TOP1[name] or any(
+            n != len(va_y) for _, _, n in evals):
+        raise AssertionError(f"{name} did not learn: {evals}")
+    return [(s, t) for s, t, _ in evals]
+
+
+def phase_learn():
+    """The learning proofs on the card: ``make_separable_wlasl`` → ``asl
+    train`` (the JAX proof's arguments, the resumable loader with decode
+    workers) → ``asl eval`` → ``asl export`` → ``asl predict --exported``
+    against ``asl predict --ckpt``; the ``pose_bilstm`` and ``two_stream``
+    proofs through ``train()``; then a few full-width ``asl train`` steps
+    with decode workers, timed. Returns the rgb kernel's launches of the
+    ``asl train`` runs."""
+    from asltpu_torch.data import synthetic
+    from asltpu_torch.ops import preprocess_kernels as k
+
+    t_phase = time.perf_counter()
+    out = {"phase": "learn"}
+    with tempfile.TemporaryDirectory() as d:
+        index, videos = synthetic.make_separable_wlasl(
+            os.path.join(d, "data"), num_glosses=6, train_per_gloss=8, val_per_gloss=4,
+            num_frames=24, size=(96, 96))
+        ck, logs = os.path.join(d, "ck"), os.path.join(d, "logs")
+        torch.cuda.synchronize()
+        k.preprocess_rgb.launches = 0
+        t0 = time.perf_counter()
+        _cli(["train", "--model", "mobilenet_gru", *LEARN_SMALL, "--index", index,
+              "--videos", videos, "--batch", "8", "--steps", "300", "--lr", "2e-3",
+              "--warmup", "10", "--log-every", "50", "--eval-split", "val",
+              "--eval-every", "75", "--ckpt-dir", ck, "--ckpt-every", "300",
+              "--frames", "4", "--crop", "32", "--log-dir", logs,
+              "--loader", "grain", "--loader-workers", str(LEARN_WORKERS)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = k.preprocess_rgb.launches
+        rows = _csv(os.path.join(logs, "train_metrics_eval.csv"))
+        traj = [(int(float(r["step"])), float(r["eval_top1"])) for r in rows]
+        if (traj[-1][0] != 300 or traj[-1][1] < LEARN_TOP1["mobilenet_gru"]
+                or any(float(r["eval_clips"]) != 24.0 for r in rows)):
+            raise AssertionError(f"asl train mobilenet_gru did not learn: {traj}")
+        out["mobilenet_gru"] = {"trajectory": traj, "train_s": train_s,
+                                "loader_workers": LEARN_WORKERS}
+        split = [ln for ln in _cli(["eval", "--model", "mobilenet_gru", *LEARN_MODEL,
+                                    "--ckpt", ck, "--index", index, "--videos", videos,
+                                    "--split", "val"])][0]
+        if split["num_clips"] != 24.0 or split["top1"] < LEARN_TOP1["mobilenet_gru"]:
+            raise AssertionError(f"asl eval of the trained checkpoint: {split}")
+        art = os.path.join(d, "artifact")
+        exp = _cli(["export", "--model", "mobilenet_gru", *LEARN_MODEL, "--ckpt", ck,
+                    "--out", art, "--batch", "8"])[0]
+        val_clip = os.path.join(videos, "00008.mp4")  # gloss 0's first val clip
+        (by_export,) = _cli(["predict", "--exported", art, val_clip])
+        (by_ckpt,) = _cli(["predict", "--model", "mobilenet_gru", *LEARN_MODEL, "--ckpt", ck,
+                           val_clip])
+        gap = max(abs(a["logit"] - b["logit"]) for a, b in zip(by_export["top5"],
+                                                                by_ckpt["top5"]))
+        if (exp["preprocess"] != "asltpu_torch::preprocess_rgb"
+                or by_export["gloss"] != by_ckpt["gloss"]):
+            raise AssertionError(f"train -> export -> predict --exported: {exp}, "
+                                 f"{by_export} vs {by_ckpt}")
+        out["chain"] = {"eval": split, "export": exp, "val_clip_gloss": by_export["gloss"],
+                        "predict_exported_vs_ckpt_top5_gap": gap}
+
+        out["pose_bilstm"] = _library_proof(
+            "pose_bilstm", dict(num_classes=6, hidden_size=32, num_frames=16, dropout=0.1),
+            synthetic.make_separable_landmarks(6, 8, num_frames=16, seed=0),
+            synthetic.make_separable_landmarks(6, 4, num_frames=16, seed=7777), 150)
+        out["two_stream"] = _library_proof(
+            "two_stream", dict(num_classes=6, num_frames=4, d_model=32, num_heads=2,
+                               num_fusion_layers=1, dropout=0.1, width_mult=0.5),
+            synthetic.make_separable_fusion(3, 2, 8, num_frames=4, size=(32, 32), seed=0),
+            synthetic.make_separable_fusion(3, 2, 4, num_frames=4, size=(32, 32), seed=7777),
+            200)
+
+        # Full width (the config's defaults: 16 frames of 256² staged,
+        # crop 224, bf16 compute), decode workers feeding the steps.
+        full_index, full_videos = synthetic.make_synthetic_wlasl(
+            os.path.join(d, "full"), num_glosses=4, clips_per_gloss=8, num_frames=32,
+            size=(256, 256))
+        full_logs = os.path.join(d, "full_logs")
+        torch.cuda.synchronize()
+        k.preprocess_rgb.launches = 0
+        _cli(["train", "--model", "mobilenet_gru", "--num-classes", "4", "--index", full_index,
+              "--videos", full_videos, "--batch", "8", "--steps", str(FULL_TRAIN_STEPS),
+              "--warmup", "1", "--log-every", "1", "--ckpt-dir", os.path.join(d, "full_ck"),
+              "--ckpt-every", "1000", "--no-augment", "--log-dir", full_logs,
+              "--loader", "grain", "--loader-workers", str(LEARN_WORKERS)])
+        torch.cuda.synchronize()
+        launches += k.preprocess_rgb.launches
+        steps = _csv(os.path.join(full_logs, "train_metrics.csv"))
+        # The first steps include cuDNN's autotuning and the workers' start.
+        step_ms = [1e3 / float(r["steps_per_sec"]) for r in steps[4:]]
+        out["full_width"] = {"steps": FULL_TRAIN_STEPS, "batch": 8, "augment": False,
+                             "loader_workers": LEARN_WORKERS,
+                             "ms_a_step_host_clock": step_ms,
+                             "median_ms_a_step": float(np.median(step_ms)),
+                             "launches": k.preprocess_rgb.launches}
+    if launches < 1:
+        raise AssertionError("the rgb kernel did not launch in asl train")
+    out["launches_cli_train"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    print(f"learn: asl train mobilenet_gru top-1 {traj}; pose_bilstm {out['pose_bilstm']}; "
+          f"two_stream {out['two_stream']}", flush=True)
+    print(f"cli/train full width (batch 8, {LEARN_WORKERS} loader workers, no augment): "
+          f"median {out['full_width']['median_ms_a_step']} ms a step (host clock, steps 5-"
+          f"{FULL_TRAIN_STEPS})", flush=True)
+    return launches
+
+
 def _live_children() -> list:
     """(pid, command line) of this process's children that have not exited,
     from ``/proc``; exited ones (zombies) are reaped on the way."""
@@ -2113,6 +2464,10 @@ def _run() -> int:
                    "mobilenet_gru/serve_yuv420": served["mobilenet_gru/serve_yuv420"]}
     if min(*served.values()) < 1:
         raise AssertionError(f"a kernel did not run on a serve path: {served}")
+    exported = phase_export()
+    yuv_by_path["export/mobilenet_gru/yuv420"] = exported.pop("export/mobilenet_gru/yuv420")
+    rgb_by_path.update(exported)
+    rgb_by_path["cli/train"] = phase_learn()
     phase_bench()
 
     kernels = []

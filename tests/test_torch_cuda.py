@@ -509,3 +509,52 @@ def test_server_on_the_card_matches_predict(card, lane, pp):
     assert not server._thread.is_alive()
     _, want = api.predict(model, frames)
     np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("lane,pp", [
+    ("rgb", dict(num_frames=3, staging_size=(64, 80), resize_short=56, crop=48)),
+    ("yuv420", dict(num_frames=3, staging_size=(48, 48), resize_short=48, crop=48,
+                    staging_format="yuv420")),
+])
+def test_export_on_the_card_launches_the_kernel_inside_the_program(card, lane, pp, tmp_path):
+    """Exported on the card, the program calls the kernel's custom op: run
+    from the artifact it launches the kernel once a batch, and its logits
+    equal the live ``predict_fn``'s (fp32, TF32 off)."""
+    from asltpu_torch.export import export_model, load_exported
+
+    model = api.load_model("mobilenet_gru", seed=3, num_classes=7, gru_hidden=32,
+                           width_mult=0.35, compute_dtype="float32",
+                           preprocess=dict(pp, out_dtype="float32"))
+    meta = export_model(model, str(tmp_path / "a"), batch_size=2)
+    assert meta["preprocess"] == f"asltpu_torch::preprocess_{lane}"
+    assert meta["platforms"] == ["cuda"]
+    em = load_exported(str(tmp_path / "a"))
+    frames = np.random.default_rng(5).integers(
+        0, 256, (2, 3, *model.cfg.preprocess.staged_frame_shape), np.uint8)
+    counter = k.preprocess_rgb if lane == "rgb" else k.preprocess_yuv420
+    before = counter.launches
+    got = em.predict_batch(frames=frames)
+    assert counter.launches == before + 1
+    want = model.predict_fn()(torch.from_numpy(frames).to(card)).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_fake_implementations_agree_with_the_kernels(card, out_dtype):
+    """Each custom op's fake implementation (what ``torch.export`` traces
+    with) gives the shape, dtype and device of the kernel's output."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cases = [
+        (k.preprocess_rgb, _frames(6, (2, 3, 64, 80, 3), card),
+         PreprocessConfig(num_frames=3, staging_size=(64, 80), resize_short=56, crop=48,
+                          out_dtype=out_dtype)),
+        (k.preprocess_yuv420, _frames(7, (2, 3, 72, 48), card),
+         PreprocessConfig(num_frames=3, staging_size=(48, 48), resize_short=48, crop=48,
+                          staging_format="yuv420", out_dtype=out_dtype)),
+    ]
+    for wrapper, x, cfg in cases:
+        real = wrapper(x, cfg)
+        with FakeTensorMode() as mode:
+            fake = wrapper(mode.from_tensor(x), cfg)
+        assert (fake.shape, fake.dtype, fake.device) == (real.shape, real.dtype, real.device)

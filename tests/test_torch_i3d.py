@@ -23,7 +23,7 @@ from asltpu.ops import stem_s2d as jstem
 from asltpu_torch import api as tapi
 from asltpu_torch import ckpt as tckpt
 from asltpu_torch.models import i3d as ti3d
-from asltpu_torch.models.common import cast_for_compute, pad_same, same_pads
+from asltpu_torch.models.common import cast_for_compute, init_weights, pad_same, same_pads
 from asltpu_torch.ops import stem_s2d as tstem
 from test_torch_models import ATOL, draw_variables, randomize_bn
 
@@ -210,6 +210,24 @@ def test_i3d_head_keeps_one_step_without_pair_average():
         got = tm.classify(feats)
         want = tm.logits(feats.mean(dim=(3, 4)).transpose(1, 2))[:, 0]
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("num_classes", [6, 2000])
+def test_seeded_logits_init_is_a_dense_layer(num_classes):
+    """The seeded init draws I3D's 1×1×1 logits as a dense layer over its
+    1024 inputs, the scale of the JAX package's ``Dense`` (lecun-normal,
+    std 1/32), whatever the class count: a conv's fan-out init gave std
+    √(2/6) ≈ 0.58 at 6 classes, and the learning proof's clipped
+    gradients went to the classifier."""
+    module = tapi.build_module(tapi.get_config("i3d", num_classes=num_classes))
+    init_weights(module, torch.Generator().manual_seed(0))
+    w, b = module.logits.conv3d.weight, module.logits.conv3d.bias
+    bound = 1024 ** -0.5
+    assert float(w.abs().max()) <= bound and float(b.abs().max()) <= bound
+    assert abs(float(w.std()) - bound / 3 ** 0.5) < 0.1 * bound
+    # The other convs keep their fan-out init.
+    stem = module.Conv3d_1a_7x7.conv3d.weight
+    assert abs(float(stem.std()) - (2 / (64 * 7 ** 3)) ** 0.5) < 1e-3
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

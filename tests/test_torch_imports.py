@@ -30,6 +30,8 @@ serving = ("asltpu_torch.serve", "asltpu_torch.serve_http", "asltpu_torch.window
            "asltpu_torch.cli", "asltpu_torch.cli.main", "asltpu_torch.utils",
            "asltpu_torch.utils.logging")
 assert set(serving) <= set(sys.modules), sorted(set(serving) - set(sys.modules))
+offline = ("asltpu_torch.export", "asltpu_torch.utils.profiling", "asltpu_torch.data.synthetic")
+assert set(offline) <= set(sys.modules), sorted(set(offline) - set(sys.modules))
 print("walked", sum(m.startswith("asltpu_torch") for m in sys.modules))
 """
 
@@ -67,7 +69,8 @@ TORCH_FREE = ("asltpu_torch._buildcache", "asltpu_torch.config", "asltpu_torch.n
               "asltpu_torch.data.decode",
               "asltpu_torch.data.staging", "asltpu_torch.data.pad",
               "asltpu_torch.data.wlasl", "asltpu_torch.data.landmarks",
-              "asltpu_torch.data.synthetic")
+              "asltpu_torch.data.synthetic", "asltpu_torch.utils",
+              "asltpu_torch.utils.profiling", "asltpu_torch.cli.main")
 
 
 def test_host_modules_import_no_torch():

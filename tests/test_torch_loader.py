@@ -116,3 +116,41 @@ def test_train_resume_continues_the_data_stream(tiny_wlasl, tmp_path):
     assert state.step == 6
     assert seen1[:2] == truth[:2]
     assert seen2[:4] == truth[2:6]
+
+
+def test_decode_workers_give_the_same_stream_and_resume(tiny_wlasl):
+    """``worker_count=2`` (decode in two spawned processes, two batches
+    ahead): the same batches in the same order as ``worker_count=0``,
+    across epochs; a state saved mid-stream resumes the same stream in a
+    worker stream and in an in-process one; ``close()`` stops the workers."""
+    import multiprocessing
+
+    records = _records(tiny_wlasl)
+
+    def loader(workers):
+        return make_train_loader(records, PP, batch_size=4, seed=5, num_epochs=3,
+                                 worker_count=workers)
+
+    want = list(loader(0))
+    before = set(multiprocessing.active_children())
+    it = iter(loader(2))
+    try:
+        got = [next(it) for _ in range(2)]
+        state = it.get_state()
+        got += list(it)
+    finally:
+        it.close()
+    assert len(got) == len(want) == 4
+    for (gf, gl), (wf, wl) in zip(got, want):
+        np.testing.assert_array_equal(gf, wf)
+        np.testing.assert_array_equal(gl, wl)
+    assert not set(multiprocessing.active_children()) - before
+    for workers in (2, 0):
+        again = iter(loader(workers))
+        try:
+            again.set_state(state)
+            assert _labels(again) == _labels(want[2:])
+        finally:
+            again.close()
+    with pytest.raises(ValueError, match="worker_count"):
+        make_train_loader(records, PP, batch_size=4, worker_count=-1)

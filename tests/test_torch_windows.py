@@ -282,18 +282,19 @@ def test_cli_checks_before_loading_fail_as_jax(session, tmp_path, case):
 
 
 def test_cli_takes_predict_and_serve_and_defaults_to_the_card(session, monkeypatch):
-    """Only the two subcommands of this package are listed; ``serve`` parses
-    its buckets and warms when they are given; without ``--device`` the
-    model goes to the card, and without a card that raises."""
+    """The JAX CLI's subcommands are listed; ``serve`` parses its buckets
+    and warms when they are given; without ``--device`` the model goes to
+    the card, and without a card that raises."""
     import torch
 
     from asltpu_torch import serve_http
 
     choices = next(a for a in tcli.build_parser()._actions
                    if a.dest == "cmd").choices
-    assert set(choices) == {"predict", "serve"}
+    assert set(choices) == {"predict", "serve", "train", "eval", "export", "landmarks",
+                            "bench"}
     with pytest.raises(SystemExit):
-        tcli.main(["train"])
+        tcli.main(["train"])  # --index and --videos are required
     calls = []
     monkeypatch.setattr(serve_http, "serve", lambda model, **kw: calls.append((model, kw)))
     assert tcli.main(["serve", "--device", "cpu", "--port", "0", "--batch-buckets", "1,4,8",
