@@ -20,6 +20,8 @@ path:
     OpenCV and libav, bound with ctypes.
   - :mod:`asltpu_torch.ckpt`    — weights from the JAX package or ``.pt``.
   - :mod:`asltpu_torch.train`   — the training loop.
+  - :mod:`asltpu_torch.dist`    — data and tensor parallelism over
+    ``torch.distributed`` process groups, and multi-process bring-up.
   - :mod:`asltpu_torch.utils`   — logging, per-step metrics, profiling.
   - :mod:`asltpu_torch.serve`, :mod:`asltpu_torch.serve_http` — the
     dynamic-batching server and its HTTP front end.

@@ -43,7 +43,11 @@ Training checkpoints, under the JAX package's directory names::
     ckpt_dir/best/best_metric.json      {"metric", "metric_name", "step"}
 
 Each step dir is written under a temporary name and renamed into place,
-so a cut run leaves no half step dir; ``torch.load`` reads them with
+so a cut run leaves no half step dir. In a world of several ranks every
+rank calls the save functions: a tensor-parallel state is gathered to the
+single-device layout (parameters and AdamW moments), rank 0 alone writes,
+and every rank waits for it; a restore slices the single-device tree again
+for this rank, so a checkpoint moves between one device and a mesh; ``torch.load`` reads them with
 ``weights_only=True``. The JAX package's orbax directories are not read:
 ``orbax.checkpoint`` imports ``jax``, and the port imports none.
 """
@@ -57,6 +61,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from asltpu_torch.config import (
@@ -66,6 +71,13 @@ from asltpu_torch.config import (
     PoseBiLSTMConfig,
     ResNet18TransformerConfig,
     TwoStreamFusionConfig,
+)
+from asltpu_torch.dist.multihost import barrier, is_main_process
+from asltpu_torch.dist.tp import (
+    tp_gather_optimizer_state,
+    tp_gather_state_dict,
+    tp_shard_optimizer_state,
+    tp_shard_state_dict,
 )
 
 Variables = Mapping[str, Any]
@@ -354,10 +366,13 @@ def _steps(directory: str) -> list:
 
 
 def _state_tree(state) -> Dict[str, Any]:
+    """The state in the single-device layout (a collective where it is
+    tensor-parallel: every rank of the model group calls it)."""
+    mesh = getattr(state, "mesh", None)
     return {
         "step": int(state.step),
-        "model": state.module.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "model": tp_gather_state_dict(state.module, mesh),
+        "optimizer": tp_gather_optimizer_state(state.module, state.optimizer, mesh),
         "schedule": state.schedule.state_dict(),
         "generator": state.generator.get_state(),
     }
@@ -392,11 +407,16 @@ def save_train_state(directory: str, state, keep: int = 3,
                      data_state: Optional[bytes] = None) -> str:
     """Save a :class:`~asltpu_torch.train.loop.TrainState` (and, given, the
     data stream's position, in the same step dir) under
-    ``directory/<step>``, pruning to the newest ``keep`` step dirs."""
-    path = _write_step_dir(directory, int(state.step), _state_tree(state), data_state)
-    if keep > 0:
-        for old in _steps(directory)[keep:]:
-            shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+    ``directory/<step>``, pruning to the newest ``keep`` step dirs. Every
+    rank calls it; rank 0 writes."""
+    tree = _state_tree(state)
+    path = os.path.join(directory, str(int(state.step)))
+    if is_main_process():
+        _write_step_dir(directory, int(state.step), tree, data_state)
+        if keep > 0:
+            for old in _steps(directory)[keep:]:
+                shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+    barrier()
     return path
 
 
@@ -424,12 +444,15 @@ def _load(path: str) -> Dict[str, Any]:
 def try_restore_train_state(directory: str, state):
     """Resume ``state`` in place from the newest step under ``directory``
     if there is one (module, optimizer, schedule, generator and step); a
-    fresh run's state is returned unchanged."""
+    fresh run's state is returned unchanged. A tensor-parallel state takes
+    this rank's slices of the single-device tree."""
     if not _steps(directory):
         return state
     tree = _load(directory)
-    state.module.load_state_dict(tree["model"])
-    state.optimizer.load_state_dict(tree["optimizer"])
+    mesh = getattr(state, "mesh", None)
+    state.module.load_state_dict(tp_shard_state_dict(state.module, tree["model"], mesh))
+    state.optimizer.load_state_dict(
+        tp_shard_optimizer_state(state.module, state.optimizer, tree["optimizer"], mesh))
     state.schedule.load_state_dict(tree["schedule"])
     state.generator.set_state(tree["generator"])
     state.step = tree["step"]
@@ -448,13 +471,26 @@ def save_best_state(directory: str, state, metric: float,
     ``metric`` so far, the metric recorded beside it. Only a strictly
     greater metric replaces it (a tie keeps the earlier one), compared with
     the record on disk, so a resumed run never replaces a better state
-    saved before the restart. Returns whether this state became the best."""
+    saved before the restart. Returns whether this state became the best.
+    Every rank calls it: rank 0 decides, and tells the others, gathers with
+    them and writes."""
     best_dir = os.path.join(directory, "best")
-    prev = load_best_metric(directory)
-    if prev is not None and prev["metric"] >= metric:
+    prev = load_best_metric(directory) if is_main_process() else None
+    better = [prev is None or prev["metric"] < metric]
+    if dist.is_initialized():
+        dist.broadcast_object_list(better, src=0)
+    if not better[0]:
         return False
-    step = int(state.step)
-    _write_step_dir(best_dir, step, _state_tree(state))
+    tree = _state_tree(state)
+    if is_main_process():
+        _write_best(best_dir, int(state.step), tree, metric, metric_name)
+    barrier()
+    return True
+
+
+def _write_best(best_dir: str, step: int, tree: Dict[str, Any], metric: float,
+                metric_name: str) -> None:
+    _write_step_dir(best_dir, step, tree)
     for other in _steps(best_dir):
         if other != step:
             shutil.rmtree(os.path.join(best_dir, str(other)), ignore_errors=True)
@@ -463,7 +499,6 @@ def save_best_state(directory: str, state, metric: float,
     with open(tmp, "w") as f:
         json.dump({"metric": float(metric), "metric_name": metric_name, "step": step}, f)
     os.replace(tmp, os.path.join(best_dir, _BEST_METRIC_FILE))
-    return True
 
 
 def load_best_metric(directory: str) -> Optional[Dict[str, Any]]:

@@ -1,6 +1,5 @@
 """CLI: ``predict | serve | train | eval | export | landmarks | bench``, the
-entry points of the port. Counterpart of ``asltpu/cli/main.py`` without
-``train --model-parallel``.
+entry points of the port. Counterpart of ``asltpu/cli/main.py``.
 
 Usage:
   python -m asltpu_torch.cli predict CLIP.mp4 [--model mobilenet_gru] [--ckpt PATH]
@@ -8,6 +7,8 @@ Usage:
   python -m asltpu_torch.cli predict --exported DIR CLIP.mp4
   python -m asltpu_torch.cli serve --model mobilenet_gru --batch-buckets 1,4,8
   python -m asltpu_torch.cli train --model mobilenet_gru --index WLASL.json --videos DIR ...
+  python -m torch.distributed.run --nproc-per-node 2 -m asltpu_torch.cli train \
+      --model resnet_transformer --model-parallel 2 --index ... --videos DIR ...
   python -m asltpu_torch.cli eval --model ... --index ... --videos DIR --split test
   python -m asltpu_torch.cli export --model ... --out DIR [--verify-clip CLIP.mp4]
   python -m asltpu_torch.cli landmarks --index ... --videos DIR --out DIR
@@ -324,6 +325,7 @@ def cmd_train(args) -> int:
     _check_model_name(args.model)
     overrides = _train_config_overrides(args)
     cfg = get_config(args.model, **overrides)
+    _check_model_parallel(cfg, args.model_parallel)
     if not hasattr(cfg, "preprocess") or hasattr(cfg, "num_landmarks"):
         raise SystemExit(
             "error: CLI training decodes RGB clips only; landmark-consuming "
@@ -336,6 +338,7 @@ def cmd_train(args) -> int:
         ckpt_dir=args.ckpt_dir, log_every=args.log_every, ckpt_every=args.ckpt_every,
         eval_every=args.eval_every, fault_inject_step=args.fault_inject_step,
     )
+    mesh = _train_mesh(args, tcfg.batch_size)
     ds = WLASLIndex(args.index, args.videos, subset=cfg.num_classes)
     records = ds.split("train")
     if not records:
@@ -349,7 +352,7 @@ def cmd_train(args) -> int:
             "lower --batch or add data"
         )
     pp = cfg.preprocess
-    model = api.build_trainable(args.model, device=args.device, **overrides)
+    model = api.build_trainable(args.model, device=_rank_device(args.device), **overrides)
 
     resumable_iter = raw_iter = None
     if args.loader == "grain":
@@ -412,13 +415,65 @@ def cmd_train(args) -> int:
             model.module, tcfg, Prefetcher(batches(), depth=2, device=model.device),
             pp_cfg=pp, metric_writer=MetricsWriter(args.log_dir),
             augment=None if args.no_augment else AugmentConfig(),
-            eval_batches=eval_batches, resumable_iter=resumable_iter,
+            eval_batches=eval_batches, resumable_iter=resumable_iter, mesh=mesh,
         )
     finally:
         if raw_iter is not None:
             raw_iter.close()
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     log.info("training done at step %d", state.step)
     return 0
+
+
+def _check_model_parallel(cfg, model_parallel: int) -> None:
+    """``--model-parallel`` against the config's shapes, by the fields the
+    config has (a config without attention shards nothing and trains
+    replicated), before any data is read or the model is built."""
+    if model_parallel == 1:
+        return
+    from asltpu_torch.dist.tp import validate_config_tp
+
+    try:
+        if model_parallel < 1:
+            raise ValueError(f"must be at least 1, got {model_parallel}")
+        validate_config_tp(cfg, model_parallel)
+    except ValueError as e:
+        raise SystemExit(f"error: --model-parallel: {e}")
+
+
+def _train_mesh(args, batch_size: int):
+    """The (data, model) mesh of this process: under ``torchrun`` (its
+    environment) the world it joins with ``--dist-backend``, laid out with
+    ``--model-parallel``; alone, the one-rank mesh (which refuses a model
+    axis above 1)."""
+    from asltpu_torch.dist import init_distributed, make_mesh
+
+    init_distributed(backend=args.dist_backend)
+    try:
+        mesh = make_mesh(model_parallel=args.model_parallel)
+    except ValueError as e:
+        raise SystemExit(f"error: --model-parallel: {e} (launch one process per rank "
+                         "with python -m torch.distributed.run)")
+    if batch_size % mesh.data_size:
+        raise SystemExit(f"error: --batch {batch_size} not divisible by the data axis "
+                         f"({mesh.data_size} ranks)")
+    return mesh
+
+
+def _rank_device(device: Optional[str]) -> Optional[str]:
+    """``--device``; by default, in a world of ranks on CUDA devices, the
+    card of this rank's ``LOCAL_RANK`` (modulo the cards there are, so that
+    gloo ranks may share one)."""
+    if device is not None or "LOCAL_RANK" not in os.environ:
+        return device
+    import torch
+
+    if not torch.cuda.is_available():
+        return device
+    return f"cuda:{int(os.environ['LOCAL_RANK']) % torch.cuda.device_count()}"
 
 
 def cmd_eval(args) -> int:
@@ -568,6 +623,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loader-workers", type=int, default=0,
                    help="decode processes of the 'grain' loader (0 = decode "
                         "in the prefetch thread)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="size of the mesh's model axis (tensor parallelism, "
+                        "asltpu_torch.dist.tp): Megatron-shards the transformer "
+                        "head's attention/MLP parameters and their AdamW moments; "
+                        "the ranks (python -m torch.distributed.run) must divide "
+                        "by it. Models without attention train replicated under it")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="process-group backend under torch.distributed.run "
+                        "(default: nccl with a CUDA device, else gloo; two ranks "
+                        "on one GPU need gloo)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="top-1/top-5 on a WLASL split")

@@ -40,7 +40,9 @@ class CrossAttentionBlock(nn.Module):
     """Pre-LN bidirectional cross-attention between two token streams:
     a + attn(lnq(a), lnkv(b)) and b + attn(lnq(b), lnkv(a)) (the residual
     adds the un-normalised input), then x + fc2(gelu(fc1(ln(x)))) per
-    stream, with the exact (erf) GELU. It computes in its inputs' dtype."""
+    stream, with the exact (erf) GELU. It computes in its inputs' dtype.
+    Under tensor parallelism (:mod:`asltpu_torch.dist.tp`) its two
+    ``*_attn`` shard by heads; the MLPs (``*_fc1``, ``*_fc2``) stay whole."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.1):
         super().__init__()

@@ -37,7 +37,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from asltpu_torch.models.common import Dropout, batch_norm, frozen_running_stats, pad_same
+from asltpu_torch.models.common import (
+    Dropout,
+    batch_norm,
+    data_parallel,
+    data_parallel_mesh,
+    frozen_running_stats,
+    pad_same,
+)
 from asltpu_torch.ops.stem_s2d import (
     STEM_KERNEL,
     STEM_STRIDE,
@@ -146,6 +153,14 @@ class Logits(nn.Module):
         return F.linear(x.to(w.dtype), w.flatten(1), self.conv3d.bias)
 
 
+@contextlib.contextmanager
+def _recompute(mesh):
+    """A rematerialised block's recompute: the running statistics frozen,
+    the forward's data-parallel mesh in force."""
+    with frozen_running_stats(), data_parallel(mesh):
+        yield
+
+
 class I3D(nn.Module):
     """[B, T, H, W, 3] preprocessed clip → logits [B, num_classes].
 
@@ -176,10 +191,11 @@ class I3D(nn.Module):
         if not (train and self.remat):
             return block(x, train)
         # Nothing in a block draws random numbers, so no RNG state is kept;
-        # the recompute runs with the running statistics frozen.
+        # the recompute runs with the running statistics frozen (and the
+        # step's data-parallel mesh, so its BatchNorms all-reduce again).
         return checkpoint(block, x, train, use_reentrant=False, preserve_rng_state=False,
                           context_fn=lambda: (contextlib.nullcontext(),
-                                              frozen_running_stats()))
+                                              _recompute(data_parallel_mesh())))
 
     def backbone(self, clip: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, T, H, W, 3] → features [B, 1024, T', H', W'] (NCDHW view)."""

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from asltpu_torch.dist.tp import copy_to_model_parallel, reduce_from_model_parallel, tp_mesh
 from asltpu_torch.models.common import Dropout, attention_dropout, cast
 from asltpu_torch.ops.recurrent import GRU
 
@@ -72,6 +73,17 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                              ln.bias, ln.eps), x.dtype)
 
 
+def _dense_reduced(x: torch.Tensor, linear: nn.Linear, mesh) -> torch.Tensor:
+    """:func:`_dense` of a layer whose input columns are sharded over the
+    model axis of ``mesh`` where it is not None (attention's ``out_proj``,
+    an encoder block's ``mlp2``): each rank's partial product is summed
+    over the model group before the whole bias is added, once."""
+    if mesh is None:
+        return _dense(x, linear)
+    y = reduce_from_model_parallel(torch.matmul(x, cast(linear.weight, x.dtype).t()), mesh)
+    return y + cast(linear.bias, x.dtype)
+
+
 def attention(mha: nn.MultiheadAttention, q_in: torch.Tensor, kv_in: torch.Tensor,
               train: bool = False, generator: Optional[torch.Generator] = None
               ) -> torch.Tensor:
@@ -83,25 +95,39 @@ def attention(mha: nn.MultiheadAttention, q_in: torch.Tensor, kv_in: torch.Tenso
     one mask shared by batch and heads, from ``generator``), the weighted
     sum of v, the output projection, each rounding to the compute dtype
     (that of ``q_in``). ``nn.MultiheadAttention``'s own forward is not
-    used, since its fused inference path rounds elsewhere."""
+    used, since its fused inference path rounds elsewhere.
+
+    Sharded over the model axis (:mod:`asltpu_torch.dist.tp`), ``mha``
+    holds this rank's heads: the head dim stays ``d / num_heads``, the
+    heads are as many as its projection's rows hold, and the output
+    projection's partial products are summed over the model group."""
     b, n, d = q_in.shape
-    heads = mha.num_heads
+    head_dim = d // mha.num_heads
     w_in, b_in = cast(mha.in_proj_weight, q_in.dtype), cast(mha.in_proj_bias, q_in.dtype)
+    heads = w_in.shape[0] // (3 * head_dim)
+    mesh = tp_mesh(mha)
+    if mesh is not None:
+        same = q_in is kv_in
+        q_in = copy_to_model_parallel(q_in, mesh)
+        kv_in = q_in if same else copy_to_model_parallel(kv_in, mesh)
     (wq, wk, wv), (bq, bk, bv) = w_in.chunk(3), b_in.chunk(3)
-    q, k, v = ((torch.matmul(x, w.t()) + bias).view(b, x.shape[1], heads, d // heads)
+    q, k, v = ((torch.matmul(x, w.t()) + bias).view(b, x.shape[1], heads, head_dim)
                for x, w, bias in ((q_in, wq, bq), (kv_in, wk, bk), (kv_in, wv, bv)))
-    q = q / torch.tensor(math.sqrt(d // heads), dtype=q.dtype)
+    q = q / torch.tensor(math.sqrt(head_dim), dtype=q.dtype)
     weights = _softmax(torch.einsum("bqhd,bkhd->bhqk", q, k))
     weights = attention_dropout(weights, mha.dropout, train, generator)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, d)
-    return _dense(out, mha.out_proj)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, n, heads * head_dim)
+    return _dense_reduced(out, mha.out_proj, mesh)
 
 
 class EncoderBlock(nn.Module):
     """Pre-LN encoder block: x + attn(ln1(x)), then x + mlp2(gelu(mlp1(ln2(x)))).
 
     ``attn`` is an ``nn.MultiheadAttention`` for its parameter names; the
-    block runs it through :func:`attention` as self-attention."""
+    block runs it through :func:`attention` as self-attention. Sharded
+    over the model axis, the MLP is a Megatron pair: ``mlp1``'s output rows
+    and ``mlp2``'s input columns on each rank, one reduction after
+    ``mlp2``."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int,
                  dropout: float):
@@ -121,8 +147,12 @@ class EncoderBlock(nn.Module):
         y = _layer_norm(x, self.ln1)
         y = attention(self.attn, y, y, train, generator)
         x = x + self.dropout(y, train, generator)
-        y = _gelu(_dense(_layer_norm(x, self.ln2), self.mlp1))
-        return x + self.dropout(_dense(y, self.mlp2), train, generator)
+        y = _layer_norm(x, self.ln2)
+        mesh = tp_mesh(self.mlp1)
+        if mesh is not None:
+            y = copy_to_model_parallel(y, mesh)
+        y = _gelu(_dense(y, self.mlp1))
+        return x + self.dropout(_dense_reduced(y, self.mlp2, mesh), train, generator)
 
 
 class TransformerHead(nn.Module):

@@ -24,6 +24,7 @@ from typing import Dict, Iterator, Optional
 import torch
 
 from asltpu_torch.config import PreprocessConfig
+from asltpu_torch.models.common import batch_rand
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +68,7 @@ def draw_augment(generator: Optional[torch.Generator], batch: int, aug: AugmentC
     (compared with ``hflip_prob``), ``brightness`` U(−b, b) and
     ``contrast`` U(1 − c, 1 + c)."""
     def uniform(lo: float, hi: float) -> torch.Tensor:
-        u = torch.rand(batch, generator=generator, device=device)
+        u = batch_rand((batch,), generator, device)
         return lo + (hi - lo) * u
 
     return {

@@ -2,8 +2,18 @@
 cross-entropy → backward → global-norm clip → AdamW with warmup-cosine)
 and the host loop around it (checkpoints with pruning, resume with the
 data stream's position, fault injection, periodic eval, keep-best).
-Counterpart of ``asltpu/train/loop.py`` without its mesh (data and tensor
-parallelism are a later slice).
+Counterpart of ``asltpu/train/loop.py``.
+
+With a ``mesh`` (:func:`asltpu_torch.dist.mesh.make_mesh`) the step is
+the JAX step under GSPMD: every rank takes the same global batch and keeps
+its rows; BatchNorm takes the global batch's statistics and dropout and
+augmentation draw for the global batch
+(:func:`asltpu_torch.models.common.data_parallel`); the gradients are
+averaged over the data group by one all-reduce before the clip, which
+counts each sharded parameter's slices once over the model group; the
+metrics are the global batch's. A module sharded over the model axis
+(:func:`asltpu_torch.dist.tp.tp_shard_module`) runs its own collectives.
+Rank 0 alone writes checkpoints and metrics.
 
 The train state owns the module (fp32 parameters and BN buffers, on its
 device), the optimizer with its schedule, and the ``torch.Generator`` that
@@ -36,6 +46,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from asltpu_torch.config import PreprocessConfig, TrainConfig
+from asltpu_torch.dist.mesh import (
+    Mesh,
+    all_reduce_data,
+    average_gradients,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
+from asltpu_torch.dist.multihost import is_main_process, process_count
+from asltpu_torch.dist.tp import is_tp_sharded, tp_placements, tp_shard_module
+from asltpu_torch.models.common import data_parallel
 from asltpu_torch.ops.preprocess import preprocess_clip
 
 Metrics = Dict[str, torch.Tensor]
@@ -49,6 +70,9 @@ class TrainState:
     optimizer: torch.optim.AdamW
     schedule: torch.optim.lr_scheduler.LambdaLR
     generator: torch.Generator
+    # The layout the module is trained in (None: one process); a checkpoint
+    # gathers its tensor-parallel shards.
+    mesh: Optional[Mesh] = None
 
     @property
     def device(self) -> torch.device:
@@ -89,22 +113,42 @@ def make_optimizer(params: Iterable[torch.Tensor], cfg: TrainConfig
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_factor(cfg))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sharded: Optional[List[bool]] = None,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: every gradient scaled by
     ``max_norm / ‖g‖`` where the global norm ``‖g‖ ≥ max_norm``, untouched
     below it (no epsilon in the denominator, unlike
     ``torch.nn.utils.clip_grad_norm_``). Returns ‖g‖ before the clip, as a
-    0-d tensor, without waiting for the device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    0-d tensor, without waiting for the device.
+
+    Under tensor parallelism ``sharded`` marks the gradients that are this
+    rank's slice of a parameter: their squared norms are summed over the
+    model group of ``mesh``, the others (whole on every rank) counted
+    once, so ‖g‖ is the whole model's."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if sharded is None or not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        import torch.distributed as dist
+
+        mask = torch.tensor(sharded, device=norms.device)
+        sq = norms * norms
+        part = sq[mask].sum()
+        dist.all_reduce(part, group=mesh.model_group)
+        norm = torch.sqrt(sq[~mask].sum() + part)
     torch._foreach_mul_(grads, torch.clamp(max_norm / norm, max=1.0))
     return norm
 
 
-def create_train_state(module: nn.Module, cfg: TrainConfig, seed: int = 0) -> TrainState:
+def create_train_state(module: nn.Module, cfg: TrainConfig, seed: int = 0,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """The initial state of ``module`` (fp32 parameters on their device, as
     ``asltpu_torch.api.build_trainable`` makes it): step 0, fresh optimizer
     and schedule, and a generator on the module's device seeded with
-    ``seed``."""
+    ``seed`` (the same on every rank). A module to train tensor-parallel is
+    sharded (``tp_shard_module``) before this, so the AdamW moments are
+    built sharded; ``mesh`` is the layout it trains in."""
     params = list(module.parameters())
     bad = sorted({str(p.dtype) for p in params if p.dtype != torch.float32})
     if bad:
@@ -112,7 +156,8 @@ def create_train_state(module: nn.Module, cfg: TrainConfig, seed: int = 0) -> Tr
                          "module with asltpu_torch.api.build_trainable, not load_model")
     opt, schedule = make_optimizer(params, cfg)
     gen = torch.Generator(params[0].device).manual_seed(seed)
-    return TrainState(step=0, module=module, optimizer=opt, schedule=schedule, generator=gen)
+    return TrainState(step=0, module=module, optimizer=opt, schedule=schedule, generator=gen,
+                      mesh=mesh)
 
 
 def softmax_ce(logits: torch.Tensor, labels: torch.Tensor, smoothing: float) -> torch.Tensor:
@@ -147,9 +192,17 @@ def _split(batch_in: Batch) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     return batch_in, ()
 
 
+def _sharded_mask(module: nn.Module) -> List[bool]:
+    """Per parameter of ``module`` (in ``parameters()`` order): whether it
+    is a tensor-parallel slice."""
+    if not is_tp_sharded(module):
+        return [False] * len(list(module.parameters()))
+    return [d is not None for d in tp_placements(module).values()]
+
+
 def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = None,
-                 augment=None) -> Callable[[TrainState, Batch, torch.Tensor],
-                                           Tuple[TrainState, Metrics]]:
+                 augment=None, mesh: Optional[Mesh] = None
+                 ) -> Callable[[TrainState, Batch, torch.Tensor], Tuple[TrainState, Metrics]]:
     """The train step ``(state, batch_in, labels) → (state, metrics)`` on
     tensors already on the state's device. With ``pp_cfg`` it takes staged
     uint8 frames and preprocesses them (the augmented variant,
@@ -158,33 +211,48 @@ def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = No
     ``batch_in`` is (RGB input, other inputs...): only element 0 is
     preprocessed or augmented (a flip or crop is not mirrored into
     landmarks). Metrics: ``loss``, ``top1`` (share of the batch) and
-    ``grad_norm`` (before the clip)."""
+    ``grad_norm`` (before the clip).
+
+    With ``mesh`` the batch is this rank's rows of the global batch
+    (:func:`make_train_step` cuts them), and the step and its metrics are
+    the global batch's (module docstring)."""
     augmenting = _check_augment(pp_cfg, augment)
 
     def step_fn(state: TrainState, batch_in: Batch, labels: torch.Tensor):
         module, gen = state.module, state.generator
         batch_in, extras = _split(batch_in)
-        with torch.no_grad():
-            if pp_cfg is None:
-                clip = batch_in
-            elif augmenting:
-                from asltpu_torch.ops.augment import augment_preprocess_clip
+        with data_parallel(mesh):
+            with torch.no_grad():
+                if pp_cfg is None:
+                    clip = batch_in
+                elif augmenting:
+                    from asltpu_torch.ops.augment import augment_preprocess_clip
 
-                clip = augment_preprocess_clip(gen, batch_in, pp_cfg, augment)
-            else:
-                clip = preprocess_clip(batch_in, pp_cfg)
-        logits = module(clip, *extras, train=True, generator=gen)
-        loss = softmax_ce(logits, labels, train_cfg.label_smoothing)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in module.parameters() if p.grad is not None]
-        grad_norm = clip_by_global_norm(grads, train_cfg.grad_clip_norm)
+                    clip = augment_preprocess_clip(gen, batch_in, pp_cfg, augment)
+                else:
+                    clip = preprocess_clip(batch_in, pp_cfg)
+            logits = module(clip, *extras, train=True, generator=gen)
+            loss = softmax_ce(logits, labels, train_cfg.label_smoothing)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        params = list(module.parameters())
+        grads = [p.grad for p in params if p.grad is not None]
+        sharded = None
+        if mesh is not None:
+            average_gradients(grads, mesh)
+            if mesh.model_size > 1:
+                sharded = [m for p, m in zip(params, _sharded_mask(module))
+                           if p.grad is not None]
+        grad_norm = clip_by_global_norm(grads, train_cfg.grad_clip_norm, sharded, mesh)
         state.optimizer.step()
         state.schedule.step()
         state.step += 1
         with torch.no_grad():
             top1 = (logits.argmax(-1) == labels).float().mean()
-        return state, {"loss": loss.detach(), "top1": top1, "grad_norm": grad_norm.detach()}
+            loss = loss.detach()
+            if mesh is not None and mesh.data_group is not None:
+                loss, top1 = all_reduce_data(mesh, torch.stack([loss, top1])) / mesh.data_size
+        return state, {"loss": loss, "top1": top1, "grad_norm": grad_norm.detach()}
 
     return step_fn
 
@@ -199,26 +267,34 @@ def _on(device: torch.device, x) -> Batch:
 
 
 def make_train_step(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = None,
-                    augment=None):
+                    augment=None, mesh: Optional[Mesh] = None):
     """:func:`make_step_fn`'s step for batches from anywhere: numpy arrays
-    or tensors on another device are moved to the state's device first."""
-    step_fn = make_step_fn(train_cfg, pp_cfg, augment)
+    or tensors on another device are moved to the state's device first.
+    With ``mesh`` it takes the GLOBAL batch, as the JAX step does, and
+    keeps this rank's rows (:func:`asltpu_torch.dist.mesh.shard_batch`)."""
+    step_fn = make_step_fn(train_cfg, pp_cfg, augment, mesh)
 
     def train_step(state: TrainState, batch_in, labels):
         dev = state.device
+        if mesh is not None:
+            batch_in, labels = shard_batch(mesh, batch_in), shard_batch(mesh, labels)
         return step_fn(state, _on(dev, batch_in), _on(dev, labels))
 
     return train_step
 
 
-def make_eval_step(pp_cfg: Optional[PreprocessConfig] = None):
+def make_eval_step(pp_cfg: Optional[PreprocessConfig] = None, mesh: Optional[Mesh] = None):
     """``(state, batch_in, labels) → (top-1 hits, top-5 hits)`` as 0-d int
     tensors: the module in inference (running statistics, no dropout,
     whatever its ``training`` flag) on the preprocessed batch (a tuple as
     the train step takes it). A pad row with label −1 matches no class, so
-    it adds no hit."""
+    it adds no hit. With ``mesh`` it takes the global batch, scores this
+    rank's rows and sums the hits over the data group: the global batch's
+    counts on every rank."""
     def eval_fn(state: TrainState, batch_in, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         dev = state.device
+        if mesh is not None:
+            batch_in, labels = shard_batch(mesh, batch_in), shard_batch(mesh, labels)
         (batch_in, extras), labels = _split(_on(dev, batch_in)), _on(dev, labels).long()
         with torch.no_grad():
             clip = preprocess_clip(batch_in, pp_cfg) if pp_cfg is not None else batch_in
@@ -226,6 +302,8 @@ def make_eval_step(pp_cfg: Optional[PreprocessConfig] = None):
             top1 = (logits.argmax(-1) == labels).sum()
             k = min(5, logits.shape[-1])
             top5 = (logits.topk(k, dim=-1).indices == labels[:, None]).any(-1).sum()
+            if mesh is not None and mesh.data_group is not None:
+                top1, top5 = all_reduce_data(mesh, torch.stack([top1, top5]))
         return top1, top5
 
     return eval_fn
@@ -241,6 +319,7 @@ def train(
     augment=None,
     eval_batches: Optional[Callable[[], Iterable[Tuple[Any, Any]]]] = None,
     resumable_iter=None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """Run the training loop over an iterable of ``(batch_in, labels)``
     (numpy arrays or tensors; ``batch_in`` a tuple ``(clip, landmarks)``
@@ -258,16 +337,35 @@ def train(
     keeps ``ckpt_dir/best/``. At ``fault_inject_step`` it raises
     :class:`FaultInjected`. ``batches.close()``, where it has one, runs on
     every exit.
+
+    In a world of more than one rank (``asltpu_torch.dist.init_distributed``)
+    ``mesh`` defaults to :func:`~asltpu_torch.dist.mesh.make_mesh` over all
+    of it (data parallelism), as the JAX loop builds its mesh over all
+    devices. Every rank runs this with the same ``batches`` (global
+    batches) and ``train_cfg``; a fresh state starts from rank 0's weights
+    (``replicate``), sharded over the model axis where it has more than
+    one rank (``tp_shard_module``), and a resume re-shards the single-device
+    checkpoint. Rank 0 alone writes checkpoints and calls
+    ``metric_writer``.
     """
     from asltpu_torch import ckpt as _ckpt
 
     if state is None:
-        state = create_train_state(module, train_cfg, train_cfg.seed)
+        if mesh is None and process_count() > 1:
+            mesh = make_mesh()
+        if mesh is not None and not is_tp_sharded(module):
+            replicate(module, mesh)
+            tp_shard_module(module, mesh)
+        state = create_train_state(module, train_cfg, train_cfg.seed, mesh=mesh)
         state = _ckpt.try_restore_train_state(train_cfg.ckpt_dir, state)
     elif state.module is not module:
         raise ValueError("state holds another module than the one given")
-    step_fn = make_train_step(train_cfg, pp_cfg, augment)
-    eval_fn = make_eval_step(pp_cfg) if eval_batches is not None else None
+    elif mesh is None:
+        mesh = state.mesh
+    if not is_main_process():
+        metric_writer = None
+    step_fn = make_train_step(train_cfg, pp_cfg, augment, mesh)
+    eval_fn = make_eval_step(pp_cfg, mesh) if eval_batches is not None else None
 
     def run_eval(step: int) -> Dict[str, float]:
         n = top1 = top5 = 0
@@ -275,7 +373,8 @@ def train(
             t1, t5 = eval_fn(state, batch_in, labels)
             top1 += int(t1)
             top5 += int(t5)
-            # Only real rows count: pad rows carry label -1.
+            # Only real rows count: pad rows carry label -1. Every rank sees
+            # the global batch, so n is the global count.
             n += int((torch.as_tensor(labels) >= 0).sum())
         metrics = {"eval_top1": top1 / max(n, 1), "eval_top5": top5 / max(n, 1),
                    "eval_clips": float(n)}

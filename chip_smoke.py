@@ -176,6 +176,34 @@ phase printing one JSON line:
    train`` steps (``mobilenet_gru`` defaults, batch 8, no augment, 4 loader
    workers) with the median step time on the host clock on a line of its
    own.
+19. dist (run after bench) — distribution on the one card, each check's
+   gaps printed: (a) a one-rank NCCL group (``init_distributed`` with
+   ``backend="nccl"``) whose mesh runs every data-parallel collective
+   (BatchNorm's global statistics, the gradient all-reduce, the metrics)
+   through NCCL: two full-width ``mobilenet_gru`` train steps at batch 8,
+   bf16 and fp32, against the same steps in one process; (b) two rank
+   processes (``chip_smoke.py --dist-rank``) in a gloo group on cuda:0 (NCCL
+   puts no two ranks of a group on one device): the same two DP steps at
+   global batch 8 (4 rows a rank), bf16 and fp32, against the one-process
+   steps; (c) in the same ranks, two TP=2 train steps of the full-width
+   ``resnet_transformer`` in fp32 (the contract head sharded) against the
+   replicated steps; (d) in the same ranks, sharded predict: 16 calibrated
+   clips a rank, logits gathered over the group, against one process's
+   predict of the 32 (1e-2, the lanes' bound, on logits spreading ≥ 1e-3);
+   (e) ``asl train --model resnet_transformer --model-parallel 2
+   --dist-backend gloo`` under ``python -m torch.distributed.run
+   --standalone --nproc-per-node 2`` (each rank runs this script's
+   ``--cli-rank`` entry, which calls ``asltpu_torch.cli``'s main as ``python
+   -m asltpu_torch.cli`` does and writes its kernel launches) on synthetic
+   records (16 clips of 32 frames of 256²), 4 steps at batch 8 with a fault
+   at step 3, then a rerun that resumes from the step-2 checkpoint rank 0
+   wrote and ends at step 4. The bounds are the ``DIST_*`` constants (their
+   comments say why); every rank joins with a 60 s collective timeout, the
+   ranks are joined within 100 s and each torchrun call within 90 s (then
+   killed with their process group). The host-clock step times print on
+   lines of their own before the card's line, as information: two gloo
+   ranks share one card and stage every collective through the host, so no
+   number here is a multi-GPU scaling figure.
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
@@ -184,7 +212,10 @@ and reads its train steps' launches when the run's eval begins, its eval's
 after it; phase serve sets them to 0 once each server is warm, just before
 its HTTP requests, and reads them when the responses are in; phase export
 counts each artifact's run in the fresh process (``export/<config>``), and
-phase learn counts its ``asl train`` runs (``cli/train``).
+phase learn counts its ``asl train`` runs (``cli/train``); phase dist
+counts (a) and (b) as ``dist/dp_train``, (c) as ``dist/tp_train``, (d) as
+``dist/sharded_predict`` and (e) as ``dist/cli_train``, each rank process
+from 0 before its run, reporting its count to this process.
 Then the card's ``nvidia-smi`` line, the kernels' JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero; on
 a host without a CUDA device it exits nonzero before doing anything. At the
@@ -2372,6 +2403,352 @@ def phase_learn():
     return launches
 
 
+DIST_RANKS = 2
+DIST_BATCH = 8  # global: 4 rows a rank
+DIST_STEPS = 2
+DIST_PREDICT = 16  # clips a rank in the sharded predict
+DIST_GROUP_TIMEOUT_S = 60  # every process group's collective timeout
+DIST_JOIN_TIMEOUT_S = 100  # the rank launch; each torchrun call: 90
+# DP (and the one-rank NCCL group) against the single-process step at full
+# width, each in fp32 and in bf16 (the main path's dtype). fp32: the loss of
+# each step within 1e-4 (relative) and grad_norm within 1e-3. bf16: the DP
+# BatchNorm is the port's own normalisation (global statistics by
+# all-reduce) where the single step runs PyTorch's kernel; the two round
+# their fp32 results to bf16 at a few other elements, and 52 training
+# BatchNorms carry that through the net, as bf16 itself moves the single
+# step from its fp32 twin. So each bf16 gap (loss, grad_norm) is held to
+# three times that step's own bf16-vs-fp32 gap (and never below the fp32
+# bound). Both: every running statistic within 1e-4 + 1e-2 of its tensor's
+# largest entry (the means of a conv after a BatchNorm sit near 0, so a
+# bound relative to the largest alone does not fit them); the parameters
+# after the steps (warmup 1: one update at lr 1e-3) within the sign-flip
+# bound of tests/unit/test_train.py:290-305, 2·lr times the largest
+# bias-corrected Adam ratio of two steps, |m̂/√v̂| ≤ 1.00136 (0.9, 0.999).
+DIST_LOSS_RTOL, DIST_NORM_RTOL, DIST_BF16_SLACK = 1e-4, 1e-3, 3.0
+DIST_STAT_ATOL, DIST_STAT_RTOL = 1e-4, 1e-2
+DIST_SIGN_FLIP = 2 * 1.00136 * 1e-3
+# TP in fp32 against the replicated step: the fp32 bounds, and (as the JAX
+# test of the tuple batch) under 0.5% of the parameters past 1e-4 of the
+# replicated ones.
+DIST_DRIFT, DIST_DRIFT_SHARE = 1e-4, 0.005
+DIST_CLI = ["--model", "resnet_transformer", "--num-classes", "4", "--model-parallel", "2",
+            "--dist-backend", "gloo", "--batch", str(DIST_BATCH), "--steps", "4",
+            "--warmup", "1", "--log-every", "1", "--ckpt-every", "2", "--no-augment",
+            "--loader", "grain"]
+
+
+def _dist_batches(name, device):
+    from asltpu_torch.config import get_config
+
+    cfg = get_config(name)
+    shape = (DIST_BATCH, cfg.preprocess.num_frames, *cfg.preprocess.staged_frame_shape)
+    stream = SeededBatches(shape, cfg.num_classes, device, seed=SEED + 30)
+    return [next(stream) for _ in range(DIST_STEPS)]
+
+
+def _dist_steps(name, mesh=None, tp=False, **over):
+    """``DIST_STEPS`` train steps of ``name`` at full width from the seed
+    (warmup 1), on one process (no ``mesh``) or as this rank of ``mesh``
+    (replicated from rank 0, sharded over the model axis with ``tp``): the
+    losses, grad norms, host-clock step ms, rgb kernel launches, and the
+    single-device state on the CPU."""
+    from asltpu_torch import api
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.dist import replicate, tp_gather_state_dict, tp_shard_module
+    from asltpu_torch.ops.preprocess_kernels import preprocess_rgb
+    from asltpu_torch.train import loop
+
+    model = api.build_trainable(name, seed=SEED, **over)
+    if mesh is not None:
+        replicate(model.module, mesh)
+        if tp:
+            tp_shard_module(model.module, mesh)
+    tcfg = TrainConfig(batch_size=DIST_BATCH, num_steps=100, warmup_steps=1)
+    state = loop.create_train_state(model.module, tcfg, SEED, mesh=mesh)
+    step = loop.make_train_step(tcfg, model.cfg.preprocess, mesh=mesh)
+    batches = _dist_batches(name, model.device)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    torch.cuda.synchronize()
+    preprocess_rgb.launches = 0
+    for b, y in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b, y)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    out["launches"] = preprocess_rgb.launches
+    out["state"] = {k: v.detach().cpu() for k, v in
+                    tp_gather_state_dict(model.module, mesh).items()}
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_predict(mesh, sd_path, clips_path):
+    """This rank's rows of the 32 calibrated clips through ``predict_fn``,
+    gathered over the data group; the rgb kernel's launches."""
+    from asltpu_torch import api
+    from asltpu_torch.dist import gather_batch, shard_batch
+    from asltpu_torch.ops.preprocess_kernels import preprocess_rgb
+
+    model = api.load_model("mobilenet_gru", seed=SEED)
+    model.module.load_state_dict(torch.load(sd_path, map_location="cuda"))
+    frames = torch.from_numpy(shard_batch(mesh, np.load(clips_path))).cuda()
+    fn = model.predict_fn()
+    torch.cuda.synchronize()
+    preprocess_rgb.launches = 0
+    with torch.no_grad():
+        logits = gather_batch(mesh, fn(frames).float())
+    return {"logits": logits.cpu(), "launches": preprocess_rgb.launches,
+            "local": list(frames.shape)}
+
+
+def _dist_rank(rank, port, out):
+    """A rank process of phase dist (``chip_smoke.py --dist-rank``): joins
+    the gloo group of ``DIST_RANKS`` on cuda:0, runs (b) DP, (c) TP and (d)
+    sharded predict, and saves what it got to ``out/rank<rank>.pt``."""
+    from asltpu_torch.dist import init_distributed, make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", DIST_RANKS, rank, backend="gloo",
+                     timeout_s=DIST_GROUP_TIMEOUT_S)
+    dp = make_mesh()
+    res = {"dp": _dist_steps("mobilenet_gru", dp),
+           "dp_fp32": _dist_steps("mobilenet_gru", dp, compute_dtype="float32"),
+           "tp": _dist_steps("resnet_transformer", make_mesh(model_parallel=DIST_RANKS),
+                             tp=True, compute_dtype="float32"),
+           "predict": _dist_predict(dp, os.path.join(out, "calibrated.pt"),
+                                    os.path.join(out, "clips.npy"))}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _cli_rank(out, argv):
+    """A rank of phase dist (e) under ``torch.distributed.run``
+    (``chip_smoke.py --cli-rank OUT train ...``): ``asltpu_torch.cli``'s
+    main on ``argv``, as ``python -m asltpu_torch.cli`` runs it, then this
+    rank's rgb kernel launches written to ``OUT/cli<run>_rank<RANK>``."""
+    from asltpu_torch.cli.main import main as cli_main
+    from asltpu_torch.ops.preprocess_kernels import preprocess_rgb
+
+    preprocess_rgb.launches = 0
+    try:
+        return cli_main(argv)
+    finally:
+        with open(f"{out}_rank{os.environ['RANK']}", "w") as f:
+            f.write(str(preprocess_rgb.launches))
+
+
+def _stat_excess(got, want) -> float:
+    """How far ``got`` exceeds the statistics bound (≤ 0: inside it)."""
+    bound = DIST_STAT_ATOL + DIST_STAT_RTOL * float(want.double().abs().max())
+    return float((got.double() - want.double()).abs().max()) - bound
+
+
+def _rels(got, want, key):
+    return [abs(a - b) / abs(b) for a, b in zip(got[key], want[key])]
+
+
+def _compare_steps(got, want, what, fp32_twin=None, drift_share=None):
+    """``got`` (a DP or TP run) against ``want`` (one process): the bounds
+    above (bf16 where ``fp32_twin``, the single step in fp32, is given);
+    returns the measured gaps."""
+    loss_bound, norm_bound = [DIST_LOSS_RTOL] * DIST_STEPS, [DIST_NORM_RTOL] * DIST_STEPS
+    gaps = {"loss_rel": _rels(got, want, "loss"), "grad_norm_rel": _rels(got, want, "grad_norm")}
+    if fp32_twin is not None:
+        loss_bound = [max(b, DIST_BF16_SLACK * g) for b, g in
+                      zip(loss_bound, _rels(want, fp32_twin, "loss"))]
+        norm_bound = [max(b, DIST_BF16_SLACK * g) for b, g in
+                      zip(norm_bound, _rels(want, fp32_twin, "grad_norm"))]
+        gaps.update(loss_bound=loss_bound, grad_norm_bound=norm_bound)
+    stats = [k for k in want["state"] if k.endswith(("running_mean", "running_var"))]
+    gaps["stat_excess"] = max((_stat_excess(got["state"][k], want["state"][k])
+                               for k in stats), default=-1.0)
+    total = drifted = 0
+    worst = 0.0
+    for k, v in want["state"].items():
+        if k in stats or not v.is_floating_point():
+            continue
+        d = (got["state"][k] - v).abs()
+        worst = max(worst, float(d.max()))
+        total += d.numel()
+        drifted += int((d > DIST_DRIFT).sum())
+    gaps.update(param_max_abs=worst, drifted_share=drifted / total)
+    ok = (all(g <= b for g, b in zip(gaps["loss_rel"], loss_bound))
+          and all(g <= b for g, b in zip(gaps["grad_norm_rel"], norm_bound))
+          and gaps["stat_excess"] <= 0 and worst <= DIST_SIGN_FLIP
+          and (drift_share is None or gaps["drifted_share"] < drift_share))
+    if not ok:
+        raise AssertionError(f"dist {what}: disagrees with one process: {gaps}")
+    return gaps
+
+
+def _dist_cli(tmp):
+    """(e): ``asl train`` of the full-width ``resnet_transformer`` with
+    ``--model-parallel 2`` under ``torch.distributed.run`` (2 gloo ranks on
+    cuda:0), 4 steps on synthetic records with a fault at step 3, then a
+    rerun that resumes from rank 0's step-2 checkpoint. Returns the rgb
+    kernel's launches of both runs' ranks."""
+    import signal
+    import subprocess
+
+    from asltpu_torch import ckpt
+    from asltpu_torch.data.synthetic import make_synthetic_wlasl
+
+    index, videos = make_synthetic_wlasl(os.path.join(tmp, "wlasl"), num_glosses=4,
+                                         clips_per_gloss=4, num_frames=32, size=(256, 256),
+                                         splits=["train"])
+    ck = os.path.join(tmp, "cli_ck")
+    launches = 0
+    for run, fault in (("cut", "3"), ("resumed", "-1")):
+        counts = os.path.join(tmp, f"cli_{run}")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(DIST_RANKS), os.path.abspath(__file__),
+               "--cli-rank", counts, "train", *DIST_CLI, "--index", index, "--videos", videos,
+               "--ckpt-dir", ck, "--fault-inject-step", fault]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            log = proc.communicate(timeout=90)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"dist cli_train {run}: no end in 90 s")
+        if (proc.returncode != 0) != (run == "cut") or (
+                run == "cut" and "FaultInjected" not in log):
+            raise AssertionError(f"dist cli_train {run}: exit {proc.returncode}\n{log[-4000:]}")
+        for r in range(DIST_RANKS):
+            with open(f"{counts}_rank{r}") as f:
+                launches += int(f.read())
+        if run == "cut" and sorted(os.listdir(ck)) != ["2"]:
+            raise AssertionError(f"dist cli_train: checkpoints after the fault: {os.listdir(ck)}")
+    steps = sorted(d for d in os.listdir(ck) if d.isdigit())
+    sd = ckpt.load_trained_state_dict(ck)
+    if steps != ["2", "4"] or sd["head.layers.0.mlp1.weight"].shape != (2048, 512):
+        raise AssertionError(f"dist cli_train: {steps}, "
+                             f"{sd['head.layers.0.mlp1.weight'].shape}")
+    return launches
+
+
+def phase_dist():
+    """Phase dist (module docstring): (a) a one-rank NCCL group, (b)-(d)
+    two gloo ranks on cuda:0, (e) ``asl train --model-parallel 2`` under
+    ``torch.distributed.run``. Returns the rgb kernel's launches by path."""
+    import shutil
+    import socket
+    import subprocess
+
+    import torch.distributed as dist
+
+    from asltpu_torch import api
+    from asltpu_torch.config import PreprocessConfig
+    from asltpu_torch.dist import Mesh, init_distributed
+    from asltpu_torch.ops.preprocess import preprocess_clip
+    from asltpu_torch.ops.preprocess_kernels import preprocess_rgb
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="asltpu_smoke_dist_")
+    try:
+        # (d)'s inputs first, so the ranks can start: calibrated weights
+        # (varied clips: at the seeded init the logits barely vary) and the
+        # 32 clips.
+        staged = PreprocessConfig().staged_frame_shape
+        model = api.load_model("mobilenet_gru", seed=SEED)
+        calib = torch.from_numpy(_varied_clips(SEED + 40, 8, 16, staged)).cuda()
+        calibrate_bn(model.module, preprocess_clip(calib, model.cfg.preprocess))
+        torch.save(model.module.state_dict(), os.path.join(tmp, "calibrated.pt"))
+        clips = _varied_clips(SEED + 41, DIST_RANKS * DIST_PREDICT, 16, staged)
+        np.save(os.path.join(tmp, "clips.npy"), clips)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(DIST_RANKS)]
+        ranks = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank",
+                                   str(r), str(port), tmp], stdout=logs[r],
+                                  stderr=subprocess.STDOUT)
+                 for r in range(DIST_RANKS)]
+        try:
+            with torch.no_grad():
+                want_logits = model.predict_fn()(torch.from_numpy(clips).cuda()).float().cpu()
+            del model, calib
+            single = _dist_steps("mobilenet_gru")
+            single32 = _dist_steps("mobilenet_gru", compute_dtype="float32")
+            # (a) The same steps in a one-rank NCCL group: a mesh over its
+            # world runs every DP collective (BatchNorm's, the gradient
+            # all-reduce) through NCCL.
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                nccl_port = s.getsockname()[1]
+            init_distributed(f"127.0.0.1:{nccl_port}", 1, 0, backend="nccl",
+                             timeout_s=DIST_GROUP_TIMEOUT_S)
+            try:
+                one_rank = Mesh(data_group=dist.group.WORLD)
+                nccl = _dist_steps("mobilenet_gru", one_rank)
+                nccl32 = _dist_steps("mobilenet_gru", one_rank, compute_dtype="float32")
+                backend = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+            replicated = _dist_steps("resnet_transformer", compute_dtype="float32")
+            deadline = time.monotonic() + DIST_JOIN_TIMEOUT_S
+            for p in ranks:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(p.returncode for p in ranks):
+            tails = []
+            for r in range(DIST_RANKS):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    tails.append(f"rank {r} exit {ranks[r].returncode}:\n{f.read()[-3000:]}")
+            raise AssertionError("dist ranks failed:\n" + "\n".join(tails))
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(DIST_RANKS)]
+        checks = {"backend_a": backend,
+                  "a_nccl_bf16": _compare_steps(nccl, single, "(a) nccl bf16", single32),
+                  "a_nccl_fp32": _compare_steps(nccl32, single32, "(a) nccl fp32"),
+                  "b_dp_bf16": _compare_steps(got[0]["dp"], single, "(b) dp bf16", single32),
+                  "b_dp_fp32": _compare_steps(got[0]["dp_fp32"], single32, "(b) dp fp32"),
+                  "c_tp_fp32": _compare_steps(got[0]["tp"], replicated, "(c) tp",
+                                              drift_share=DIST_DRIFT_SHARE)}
+        for g in got[1:]:
+            for part in ("dp", "dp_fp32", "tp"):
+                if g[part]["loss"] != got[0][part]["loss"]:
+                    raise AssertionError(f"dist {part}: the ranks' losses differ")
+        logits = got[0]["predict"]["logits"]
+        spread = float((want_logits - want_logits.mean(0)).abs().max())
+        err = float((logits - want_logits).abs().max())
+        checks["d_predict"] = {"max_abs_err": err, "spread": spread,
+                               "rows_a_rank": got[0]["predict"]["local"][0]}
+        if logits.shape != want_logits.shape or err > LANE_LOGIT_ATOL or (
+                spread < VARIED_SPREAD_MIN):
+            raise AssertionError(f"dist (d) sharded predict: {checks['d_predict']}")
+        torch.cuda.synchronize()
+        preprocess_rgb.launches = 0
+        launches = {"dist/dp_train": nccl["launches"] + nccl32["launches"] + sum(
+                        g["dp"]["launches"] + g["dp_fp32"]["launches"] for g in got),
+                    "dist/tp_train": sum(g["tp"]["launches"] for g in got),
+                    "dist/sharded_predict": sum(g["predict"]["launches"] for g in got),
+                    "dist/cli_train": _dist_cli(tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    timing = {"single_dp_ms": single["ms"], "a_nccl_ms": nccl["ms"],
+              "b_dp_ms": [g["dp"]["ms"] for g in got], "single_dp_fp32_ms": single32["ms"],
+              "b_dp_fp32_ms": [g["dp_fp32"]["ms"] for g in got],
+              "replicated_tp_ms": replicated["ms"],
+              "c_tp_ms": [g["tp"]["ms"] for g in got]}
+    emit({"phase": "dist", "checks": checks, "launches_by_path": launches,
+          "timing_ms_host_clock": timing, "seconds": time.perf_counter() - t0})
+    if min(launches.values()) < 1:
+        raise AssertionError(f"dist: a path launched no rgb kernel: {launches}")
+    return launches, timing
+
+
 def _live_children() -> list:
     """(pid, command line) of this process's children that have not exited,
     from ``/proc``; exited ones (zombies) are reaped on the way."""
@@ -2421,6 +2798,11 @@ def stop_child_processes() -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dist-rank"]:
+        _dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if sys.argv[1:2] == ["--cli-rank"]:
+        return _cli_rank(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -2469,6 +2851,8 @@ def _run() -> int:
     rgb_by_path.update(exported)
     rgb_by_path["cli/train"] = phase_learn()
     phase_bench()
+    dist_launches, dist_timing = phase_dist()
+    rgb_by_path.update(dist_launches)
 
     kernels = []
     for lane, fn, by_path, replaces in (
@@ -2506,6 +2890,10 @@ def _run() -> int:
     print("serve host-to-device copy share of a batch: " + ", ".join(
         f"bucket {b} {v['copy_share']} ({v['copy_ms']} of {v['batch_ms']} ms)"
         for b, v in copy_share.items()), flush=True)
+    # Phase dist's step times (host clock; information, not a claim: two
+    # gloo ranks share one card and stage every collective through the host).
+    for key, ms in dist_timing.items():
+        print(f"dist {key} (host clock, each step): {ms}", flush=True)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,12 +5,15 @@ as ``tests/unit/test_cli.py`` drives the JAX package's: landmarks → predict
 Beside them: ``eval`` prints the JAX CLI's metrics on the same data and
 carried weights, ``bench`` forwards its arguments, and ``train --loader
 grain --loader-workers 2`` cut by a fault resumes into the uninterrupted
-stream. (``train --model-parallel`` waits for the port of ``asltpu/dist``.)"""
+stream; ``train --model-parallel`` checks the config's shapes before any
+data is read, and trains tensor-parallel under ``torch.distributed.run``."""
 
 import csv
 import importlib
 import json
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -259,3 +262,70 @@ def test_cli_eval_matches_the_jax_cli(capsys, tmp_path, tiny_wlasl_module):
     assert want["num_clips"] == got["num_clips"] == 6.0
     assert {k: got[k] for k in ("top1", "top5", "num_clips", "num_skipped")} == \
         {k: want[k] for k in ("top1", "top5", "num_clips", "num_skipped")}
+
+
+def test_cli_train_model_parallel_is_checked_before_any_data(tmp_path, monkeypatch):
+    """``--model-parallel 3`` on the contract head (8 heads) exits with the
+    JAX CLI's message before the index is read or a model built; so does a
+    model axis that one process cannot hold."""
+    from asltpu_torch import api
+
+    def no_build(*a, **k):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(api, "build_trainable", no_build)
+    missing = str(tmp_path / "no_such_index.json")
+    argv = ["train", "--device", "cpu", "--index", missing, "--videos", str(tmp_path)]
+    with pytest.raises(SystemExit, match="error: --model-parallel: num_heads=8 not "
+                                         "divisible by model_parallel=3"):
+        main(argv + ["--model", "resnet_transformer", "--model-parallel", "3"])
+    with pytest.raises(SystemExit, match="error: --model-parallel: 1 devices not "
+                                         "divisible by model_parallel=2"):
+        main(argv + ["--model", "resnet_transformer", "--model-parallel", "2"])
+
+
+def test_cli_model_parallel_guard_reads_the_fields_each_config_has(tmp_path):
+    """The two_stream config has heads and no ``mlp_ratio`` (its MLPs stay
+    whole): the guard checks its heads and reads no ``mlp_ratio``, which the
+    JAX CLI's guard does (``asltpu/cli/main.py:342-344``)."""
+    import asltpu.config as jconfig
+
+    assert not hasattr(jconfig.TwoStreamFusionConfig(), "mlp_ratio")
+    argv = ["train", "--device", "cpu", "--model", "two_stream", "--index",
+            str(tmp_path / "none.json"), "--videos", str(tmp_path)]
+    with pytest.raises(SystemExit, match="RGB clips only"):
+        main(argv + ["--model-parallel", "2"])
+    with pytest.raises(SystemExit, match="num_heads=8 not divisible by model_parallel=3"):
+        main(argv + ["--model-parallel", "3"])
+
+
+def test_cli_train_model_parallel_under_torchrun(tmp_path, tiny_wlasl_module):
+    """``python -m torch.distributed.run --nproc-per-node 2 -m
+    asltpu_torch.cli train --model resnet_transformer --model-parallel 2
+    --dist-backend gloo`` at tiny shapes: a fault at step 3, then the rerun
+    resumes from the step-2 checkpoint rank 0 wrote (whole tensors, the
+    single-device layout) and ends at step 4."""
+    index, videos = tiny_wlasl_module
+    ck = tmp_path / "ck"
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2", "-m", "asltpu_torch.cli", "train", "--device", "cpu",
+            "--model", "resnet_transformer", "--num-classes", "6",
+            "--set", "d_model=32", "--set", "num_heads=4", "--set", "num_tx_layers=1",
+            "--model-parallel", "2", "--dist-backend", "gloo",
+            "--index", index, "--videos", videos, "--batch", "4", "--steps", "4",
+            "--warmup", "1", "--log-every", "1", "--ckpt-dir", str(ck), "--ckpt-every", "2",
+            "--frames", "2", "--crop", "32", "--no-augment"]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    cut = subprocess.run(argv + ["--fault-inject-step", "3"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert cut.returncode != 0 and "FaultInjected" in cut.stderr, cut.stderr[-3000:]
+    assert sorted(os.listdir(ck)) == ["2"]
+    done = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert sorted(d for d in os.listdir(ck) if d.isdigit()) == ["2", "4"]
+    from asltpu_torch import ckpt
+
+    sd = ckpt.load_trained_state_dict(str(ck))
+    assert sd["head.layers.0.mlp1.weight"].shape == (128, 32)
+    assert sd["head.layers.0.attn.in_proj_weight"].shape == (96, 32)

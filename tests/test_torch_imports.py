@@ -32,6 +32,9 @@ serving = ("asltpu_torch.serve", "asltpu_torch.serve_http", "asltpu_torch.window
 assert set(serving) <= set(sys.modules), sorted(set(serving) - set(sys.modules))
 offline = ("asltpu_torch.export", "asltpu_torch.utils.profiling", "asltpu_torch.data.synthetic")
 assert set(offline) <= set(sys.modules), sorted(set(offline) - set(sys.modules))
+dist = ("asltpu_torch.dist", "asltpu_torch.dist.mesh", "asltpu_torch.dist.tp",
+        "asltpu_torch.dist.multihost")
+assert set(dist) <= set(sys.modules), sorted(set(dist) - set(sys.modules))
 print("walked", sum(m.startswith("asltpu_torch") for m in sys.modules))
 """
 
