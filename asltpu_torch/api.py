@@ -287,6 +287,7 @@ def stream_predict(
     prefetch_depth: int = 2,
     skip_errors: bool = False,
     yield_items: bool = False,
+    decode_pool: Optional[Any] = None,
 ) -> Iterator[Tuple[Any, Any, np.ndarray]]:
     """Batched streaming inference: decode → double-buffered prefetch to the
     device → predict; yields (path, gloss, logits) as batches complete.
@@ -305,7 +306,11 @@ def stream_predict(
     ``decode_backend="av"``) turns on the av decoder's codec-level fast
     modes (``asltpu_torch.native.FAST_ALL``): pixels differ slightly from
     the exact decode. ``skip_errors=True`` drops clips that do not decode or
-    whose landmarks do not load.
+    whose landmarks do not load. ``decode_pool``: a pool from
+    :func:`~asltpu_torch.data.decode.make_decode_pool` to decode with, in
+    place of one made from ``num_decode_workers``, ``decode_backend`` and
+    ``decode_fast``; it stays open (a caller streaming many corpora starts
+    its workers once).
     """
     items = list(paths)
     paths = [it.path if hasattr(it, "path") else it for it in items]
@@ -336,15 +341,17 @@ def stream_predict(
             "decode_fast requires decode_backend='av' (codec-level fast modes "
             "live in the libavcodec backend)"
         )
-    pool = make_decode_pool(pp, num_workers=num_decode_workers, backend=decode_backend,
-                            fast_flags=native.FAST_ALL if decode_fast else 0)
+    pool = decode_pool or make_decode_pool(
+        pp, num_workers=num_decode_workers, backend=decode_backend,
+        fast_flags=native.FAST_ALL if decode_fast else 0)
     batches = pool.map_batches(items, batch_size, "skip" if skip_errors else "raise")
     if model.takes_landmarks:
         batches = _with_landmarks(batches, load_lm)
     try:
         yield from results(batches)
     finally:
-        pool.shutdown()
+        if decode_pool is None:
+            pool.shutdown()
 
 
 def _landmark_loader(items, paths, landmarks_for, skip_errors):

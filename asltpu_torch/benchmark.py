@@ -31,15 +31,50 @@ with random weights from ``--seed``. Per video cell:
   the native OpenCV library where it is built, else with cv2, as the JAX
   package's pool does), the native OpenCV and libav
   libraries at the largest count of threads, and libav with
-  ``decode_fast`` (``FAST_ALL``);
+  ``decode_fast`` (``FAST_ALL``); each on a pool started before the clock
+  (a cell starts one pool per backend, worker count and fast flags, its
+  workers warmed on clips of their own), where the JAX bench times from
+  the pool's start;
 - ``mp4_stream``: ``stream_predict`` over a fresh corpus, mp4 → logits,
-  with ``decode_backend="auto"`` (the backend it chose is named) and
-  ``"process"`` (``two_stream``: ``landmarks_for`` gives seeded landmarks
-  per path); its top-1 must equal ``predict``'s on the same staged clips;
+  on such a started pool: ``auto`` (the backend it chose is named),
+  ``process`` and, where libav builds, ``av`` (with ``FAST_ALL`` under
+  ``--decode-fast`` or where the cell's ``decode_fast_gate`` promoted it;
+  ``two_stream``: ``landmarks_for`` gives seeded landmarks per path); its
+  top-1 must equal ``predict``'s on the same staged clips;
 - ``gflops_per_clip`` (``FlopCounterMode`` over the model's forward in one
   predict, divided by the batch; the preprocess kernel is not a PyTorch op
   and adds none) and, on the card, ``mfu`` against the H100 SXM bf16 dense
   peak.
+
+Every timed mp4 stream runs under the JAX bench's discipline
+(``asltpu/benchmark.py:298-492``): contiguous windows, the median window,
+and :func:`poisoned_sample`, whose reference rates are the same corpus
+size's decode rows (each capped at the cell's device-only clips/s; none
+on the CPU, where decode and the model share the host's cores); a
+poisoned stream is retried once on a fresh corpus of the same size (after
+a bounded host-recovery probe for ``uniform_starvation``), both attempts
+reported (``first_attempt_windows``, ``retry_trigger``), the retry's
+result standing. ``--trace DIR`` captures each timed stream, each
+attempt, with ``torch.profiler`` (main process; corpus writing, the
+pool's start-up and the comparison with ``predict`` stay outside) into
+``DIR/<family>_<lane>/<row>/attempt<k>``, and the row's ``trace`` gives
+the lane kernel's CUDA events in the stream's range and the device's busy
+share over it.
+
+The two ``mobilenet_gru`` cells also carry ``realistic``, the JAX bench's
+640×480 corpus (``asltpu/benchmark.py:749-866``; off with
+``--no-realistic-corpus``, the size from ``--realistic-size``): decode-only
+clips/s by backend on fresh files at that size (``decode_only``), the
+process pool by worker count with the fit ``min(workers * r1,
+device_rate)`` against the cell's device-only clips/s (``scaling``),
+``stream_predict`` over ``1 + --windows`` batches of such files on
+``auto`` (``mp4_stream``) and on libav with ``FAST_ALL``
+(``mp4_stream_fast``, its logits held to the exact decode's), and
+``decode_fast_gate``: exact and ``FAST_ALL`` decode of fresh
+``--clip-size`` files through the model, promoted when every top-1
+matches, or when one flips and the largest logit gap stays under 10% of
+the exact logits' spread. Every corpus of a cell except a retry's is
+written before the cell's first decode measurement.
 
 The ``i3d:train`` cell measures I3D fine-tuning (``asltpu_torch.train``):
 full production train steps (the rgb kernel's preprocess, forward,
@@ -69,8 +104,8 @@ The ``pose_bilstm`` cell has ``device_only`` (no preprocess kernel: its
 LSTM's and the classifier's multiply-adds from the shapes) and ``stream``
 (seeded landmark batches through ``Prefetcher``); it decodes no video.
 
-``decode`` and ``mp4_stream`` need OpenCV; without it each is
-``{"ran": false, "why": ...}`` and the rest runs. A native library whose
+``decode``, ``mp4_stream`` and ``realistic`` need OpenCV; without it each
+is ``{"ran": false, "why": ...}`` and the rest runs. A native library whose
 toolchain is missing (``g++``, the OpenCV or libav headers) is
 ``{"ran": false, "why": <what is missing>}``; one whose toolchain is
 present but whose build or decode fails fails the run. Device times come from
@@ -87,7 +122,9 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import glob
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -114,6 +151,7 @@ from asltpu_torch.models.video import MobileNetV2GRU
 from asltpu_torch.ops import preprocess_kernels
 from asltpu_torch.ops.preprocess import preprocess_clip
 from asltpu_torch.serve import PredictServer
+from asltpu_torch.utils import profiling
 
 # (family, lane, clips per batch): the JAX bench's batches per family
 # (asltpu/benchmark.py:1298-1304).
@@ -151,6 +189,22 @@ PEAK_FP32_FLOP_PER_S = 67e12
 # (row, make_decode_pool backend, native library, fast flags).
 NATIVE_DECODE = (("native", "native", "opencv", 0), ("av", "av", "av", 0),
                  ("av_fast", "av", "av", native.FAST_ALL))
+# The cells that carry the 640×480 block: the JAX bench's headline model on
+# its headline lane (yuv420) and on load_model's default lane (rgb).
+REALISTIC_CELLS = (("mobilenet_gru", "rgb"), ("mobilenet_gru", "yuv420"))
+# Timed clips per backend (asltpu/benchmark.py:756-758), per worker count of
+# the scaling sweep (:1465-1470) and of the decode-fast gate (:628-630).
+REALISTIC_DECODE_CLIPS, SCALING_CLIPS, GATE_CLIPS = 32, 16, 16
+# poisoned_sample's factors (asltpu/benchmark.py:317-324) and the bounded
+# host-recovery probe before a uniform_starvation retry (:473-487).
+BIMODAL_FACTOR, STARVATION_FACTOR = 0.5, 0.3
+RECOVERY_PROBE_S, RECOVERY_PROBE_CLIPS, RECOVERY_SLEEP_S, RECOVERY_FACTOR = 150.0, 8, 20.0, 0.5
+# The gate's criteria (asltpu/benchmark.py:249-254, :286-287).
+GATE_REL_LOGIT_DELTA = 0.10
+# The device's activity in a torch.profiler trace (Chrome trace categories),
+# and the named range of a timed stream in it.
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+STREAM_SCOPE = "asltpu_torch.timed_stream"
 
 
 def card_identity() -> Dict[str, object]:
@@ -395,33 +449,65 @@ def _cv2_missing() -> Optional[str]:
 
 
 def make_corpus(writers: concurrent.futures.Executor, root: str, prefix: str,
-                n: int, seed0: int, size: int, frames: int) -> List[str]:
-    """``n`` distinct synthetic mp4s of ``size``² and ``frames`` frames,
-    seeds ``seed0`` on, written by the ``writers`` pool."""
+                n: int, seed0: int, size: Tuple[int, int], frames: int) -> List[str]:
+    """``n`` distinct synthetic mp4s of ``size`` = (H, W) and ``frames``
+    frames, seeds ``seed0`` on, written by the ``writers`` pool."""
     paths = [os.path.join(root, f"{prefix}{i:04d}.mp4") for i in range(n)]
-    futures = [writers.submit(write_video, p, num_frames=frames, size=(size, size),
+    futures = [writers.submit(write_video, p, num_frames=frames, size=size,
                               seed=seed0 + i) for i, p in enumerate(paths)]
     for f in futures:
         f.result()
     return paths
 
 
-def decode_rate(pp, paths: Sequence[str], batch: int, workers: int,
-                backend: str = "process", fast_flags: int = 0) -> float:
-    """Decode-only clips/s of one backend over ``paths``, timed after a
-    first batch of ``workers`` clips (the pool's start-up: worker
-    processes, or the native library's load)."""
-    pool = make_decode_pool(pp, num_workers=workers, backend=backend,
-                            fast_flags=fast_flags)
-    try:
-        warm, timed = paths[:workers], paths[workers:]
-        for _ in pool.map_batches(warm, workers):
+@dataclasses.dataclass
+class Corpus:
+    """Fresh synthetic mp4s for one run: each call writes ``n`` files of
+    ``size`` under a prefix of its own, every file with a seed of its own."""
+
+    writers: concurrent.futures.Executor
+    root: str
+    frames: int
+    seed: int = 0
+
+    def __call__(self, prefix: str, n: int, size: Tuple[int, int]) -> List[str]:
+        paths = make_corpus(self.writers, self.root, prefix, n, self.seed, size, self.frames)
+        self.seed += n
+        return paths
+
+
+class CellPools:
+    """The started decode pools of one cell, one per (backend it resolves
+    to, workers, fast flags): each starts its workers (or loads its native
+    library) on ``warm[:workers]`` when first asked for, outside every
+    clock; :meth:`close` shuts them all down."""
+
+    def __init__(self, cfg, warm: Sequence[str]):
+        self.cfg, self.warm = cfg, warm
+        self._pools: Dict[Tuple[str, int, int], object] = {}
+
+    def get(self, backend: str, workers: int, fast_flags: int = 0):
+        pool = make_decode_pool(self.cfg, num_workers=workers, backend=backend,
+                                fast_flags=fast_flags)
+        key = (pool.backend, workers, fast_flags)
+        if key in self._pools:
+            pool.shutdown()  # "auto" resolved to a pool already started
+            return self._pools[key]
+        self._pools[key] = pool
+        for _ in pool.map_batches(self.warm[:workers], workers):
             pass
-        t0 = time.perf_counter()
-        n = sum(len(kept) for _, kept in pool.map_batches(timed, batch))
-        return n / (time.perf_counter() - t0)
-    finally:
-        pool.shutdown()
+        return pool
+
+    def close(self) -> None:
+        for pool in self._pools.values():
+            pool.shutdown()
+
+
+def decode_rate(pool, paths: Sequence[str], batch: int) -> float:
+    """Decode-only clips/s of a started pool over ``paths``."""
+    t0 = time.perf_counter()
+    n = sum(len(kept) for _, kept in pool.map_batches(paths, batch))
+    return n / (time.perf_counter() - t0)
 
 
 def corpus_landmarks(num_frames: int) -> Callable[[str], np.ndarray]:
@@ -433,82 +519,360 @@ def corpus_landmarks(num_frames: int) -> Callable[[str], np.ndarray]:
     return landmarks_for
 
 
-def mp4_stream(model: api.Model, paths: Sequence[str], batch: int, workers: int,
-               n_windows: int, backend: str) -> Dict[str, object]:
-    """``stream_predict`` over ``paths`` with ``decode_backend=backend``
-    (and, for ``two_stream``, :func:`corpus_landmarks`): the first batch
-    (pool start-up, decode of a batch, the first predict) is the fill, the
-    later batches the windows. The pool decodes ahead, so the first window
-    can start with clips decoded during the fill; the median window is the
-    stream's rate. Its top-1 must equal ``predict``'s on the same staged
-    clips, batched the same way (decoded again by a pool of the same
-    backend, after the clock)."""
+def poisoned_sample(win_rates: Sequence[float], e2e_cps: float,
+                    sel: Dict[str, Optional[float]]) -> Optional[str]:
+    """Why a timed stream is no evidence about the pipeline, or None if it
+    stands (``asltpu/benchmark.py:298-325``):
+
+    - ``"bimodal_windows"``: the median window is under half the best one,
+      so something hit part of the stream;
+    - ``"uniform_starvation"``: the windows agree, but the stream ran under
+      0.3× the best reference decode rate of ``sel`` (None where a backend
+      did not run), so something hit the whole of it.
+
+    Empty windows stand."""
+    if not win_rates:
+        return None
+    if e2e_cps < BIMODAL_FACTOR * max(win_rates):
+        return "bimodal_windows"
+    sel_best = max((r for r in sel.values() if isinstance(r, (int, float))), default=None)
+    if sel_best and e2e_cps < STARVATION_FACTOR * sel_best:
+        return "uniform_starvation"
+    return None
+
+
+def reference_rates(decode: Dict[str, object], device: torch.device,
+                    cap: float) -> Dict[str, Optional[float]]:
+    """``poisoned_sample``'s ``sel`` from a decode block's rows: each rate
+    capped at ``cap``, the cell's device-only clips/s (a stream cannot
+    outrun the device, so a decode rate above it says nothing of a slower
+    stream's host); None where a row did not run. Empty on the CPU, where
+    decode and the model share the host's cores and no decode rate bounds
+    what a healthy stream reaches: there only ``bimodal_windows`` applies."""
+    out: Dict[str, Optional[float]] = {}
+    if device.type != "cuda":
+        return out
+    for row, r in decode.items():
+        if not (isinstance(r, dict) and "ran" in r):
+            continue
+        if "clips_per_s_by_workers" in r:
+            out.update({f"{row}_{w}": min(v, cap)
+                        for w, v in r["clips_per_s_by_workers"].items()})
+        else:
+            out[row] = min(r["clips_per_s"], cap) if r["ran"] else None
+    return out
+
+
+def trace_summary(trace_dir: str, kernel: str) -> Dict[str, object]:
+    """What the ``torch.profiler`` capture in ``trace_dir`` holds within its
+    ``STREAM_SCOPE`` range: the CUDA events of the port's kernel ``kernel``
+    (its ``<kernel>_kernel`` function), the device's activity (kernels,
+    copies, sets) and its busy share over the range (None where the range
+    holds no device activity: a run on the CPU)."""
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    (scope,) = [e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == STREAM_SCOPE]
+    lo, hi = scope["ts"], scope["ts"] + scope["dur"]
+    device = [e for e in events if e.get("cat") in DEVICE_EVENT_CATS and lo <= e["ts"] <= hi]
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in device):
+        busy += max(0.0, b - max(a, end))  # the union of the device's intervals
+        end = max(end, b)
+    return {"file": path, "device_events": len(device),
+            "kernel_events": sum(1 for e in device if e.get("cat") == "kernel"
+                                 and f"{kernel}_kernel" in e.get("name", "")),
+            "span_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / (hi - lo) if device else None}
+
+
+def _lane_kernel(model: api.Model) -> str:
+    return KERNELS["yuv420" if model.cfg.preprocess.staging_format == "yuv420" else "rgb"]
+
+
+def timed_stream(model: api.Model, paths: Sequence[str], batch: int, pool,
+                 n_windows: int, trace_dir: Optional[str]) -> Tuple[Dict[str, object], np.ndarray]:
+    """``stream_predict`` over ``paths`` on the started ``pool`` (and, for
+    ``two_stream``, :func:`corpus_landmarks`), captured into ``trace_dir``
+    where given: the first batch (decode of a batch, the first predict) is
+    the fill, the later batches the windows, the median window the
+    stream's rate. Returns the rates, the lane kernel's launches and the
+    stream's logits."""
     landmarks_for = (corpus_landmarks(model.cfg.preprocess.num_frames)
                      if model.takes_landmarks else None)
-    t_start = time.perf_counter()
+    name = _lane_kernel(model)
+    kernel = getattr(preprocess_kernels, name)
     stamps, logits = [], []
-    for _, _, lg in api.stream_predict(model, paths, batch_size=batch,
-                                       num_decode_workers=workers,
-                                       decode_backend=backend,
-                                       landmarks_for=landmarks_for):
-        stamps.append(time.perf_counter())
-        logits.append(lg)
+    capture = profiling.trace(trace_dir) if trace_dir else contextlib.nullcontext()
+    kernel.launches = 0
+    with capture, profiling.named_scope(STREAM_SCOPE):
+        t_start = time.perf_counter()
+        for _, _, lg in api.stream_predict(model, paths, batch_size=batch, decode_pool=pool,
+                                           landmarks_for=landmarks_for):
+            stamps.append(time.perf_counter())
+            logits.append(lg)
+    launches = kernel.launches
     ends = [stamps[min(i + batch, len(stamps)) - 1] for i in range(0, len(stamps), batch)]
     sizes = [min(batch, len(stamps) - i) for i in range(0, len(stamps), batch)]
     if len(ends) < 2:
         raise ValueError("mp4 stream: the corpus must hold at least two batches")
     out = _windows(t_start, ends[0], list(zip(ends[1:], sizes[1:])), n_windows,
                    fill_clips=sizes[0])
-    pool = make_decode_pool(model.cfg.preprocess, num_workers=workers, backend=backend)
-    out["backend"] = pool.backend  # what "auto" chose
+    out.update(predict_calls=len(ends), kernel=name, kernel_launches=launches)
+    if trace_dir:
+        out["trace"] = trace_summary(trace_dir, name)
+    return out, np.stack(logits)
+
+
+def host_recovery_probe(pool, corpus: Corpus, prefix: str, size: Tuple[int, int],
+                        reference: float) -> float:
+    """Decode-only clips/s of ``pool`` on fresh probes of
+    ``RECOVERY_PROBE_CLIPS`` files, again every ``RECOVERY_SLEEP_S`` until
+    it reaches ``RECOVERY_FACTOR`` × ``reference`` or ``RECOVERY_PROBE_S``
+    have passed (``asltpu/benchmark.py:473-487``): the last probe's rate."""
+    t0, k, rate = time.perf_counter(), 0, 0.0
+    while time.perf_counter() - t0 < RECOVERY_PROBE_S:
+        probe = corpus(f"{prefix}probe{k}_", RECOVERY_PROBE_CLIPS, size)
+        k += 1
+        tp = time.perf_counter()
+        n = sum(len(kept) for _, kept in pool.map_batches(probe, RECOVERY_PROBE_CLIPS))
+        rate = n / (time.perf_counter() - tp)
+        if rate >= RECOVERY_FACTOR * reference:
+            break
+        time.sleep(RECOVERY_SLEEP_S)
+    return rate
+
+
+def mp4_row(model: api.Model, pool, paths: Sequence[str], batch: int, n_windows: int,
+            sel: Dict[str, Optional[float]], corpus: Corpus, prefix: str,
+            size: Tuple[int, int], trace_dir: Optional[str] = None, reference_pool=None,
+            require_top1: bool = True) -> Dict[str, object]:
+    """One timed mp4 → logits row: :func:`timed_stream` over ``paths`` on
+    the started ``pool``. A stream that :func:`poisoned_sample` rejects
+    against ``sel`` runs once more on a fresh corpus of the same size, and
+    its result stands; the first attempt's windows and the trigger are
+    reported beside it. Then the standing attempt's clips are decoded again
+    by ``reference_pool`` (default ``pool``) and batched as the stream
+    batched them: its logits against ``predict``'s on them, whose top-1 it
+    must equal when ``require_top1``."""
+    def attempt(k):
+        return os.path.join(trace_dir, f"attempt{k}") if trace_dir else None
+
+    out, got = timed_stream(model, paths, batch, pool, n_windows, attempt(1))
+    trigger = poisoned_sample(out["window_clips_per_s"], out["clips_per_s"], sel)
+    if trigger:
+        first = out
+        paths = corpus(f"{prefix}retry_", len(paths), size)
+        probe = {}
+        if trigger == "uniform_starvation":
+            best = max(r for r in sel.values() if r is not None)
+            probe["retry_host_probe_clips_per_s"] = host_recovery_probe(
+                pool, corpus, prefix, size, best)
+        out, got = timed_stream(model, paths, batch, pool, n_windows, attempt(2))
+        out.update(retry_trigger=trigger, first_attempt_windows=first["window_clips_per_s"],
+                   first_attempt_clips_per_s=first["clips_per_s"], **probe)
+    out.update(backend=pool.backend, fast_flags=getattr(pool, "fast_flags", 0))
+    landmarks_for = (corpus_landmarks(model.cfg.preprocess.num_frames)
+                     if model.takes_landmarks else None)
+
     def inputs(frames, kept):
         if landmarks_for is None:
             return (frames,)
         return frames, pad_to_batch(np.stack([landmarks_for(paths[k]) for k in kept]), batch)
 
-    try:
-        want = np.concatenate([api.predict(model, *inputs(frames, kept))[1][:len(kept)]
-                               for frames, kept in pool.map_batches(paths, batch)])
-    finally:
-        pool.shutdown()
-    got = np.stack(logits)
-    if not (got.argmax(-1) == want.argmax(-1)).all():
+    want = np.concatenate([api.predict(model, *inputs(frames, kept))[1][:len(kept)]
+                           for frames, kept in (reference_pool or pool).map_batches(paths, batch)])
+    top1 = bool((got.argmax(-1) == want.argmax(-1)).all())
+    if require_top1 and not top1:
         raise AssertionError("mp4 stream: top-1 differs from predict on the same "
                              "staged clips")
-    out.update(top1_equal_predict=True,
-               max_logit_err_vs_predict=float(np.abs(got - want).max()))
+    out.update(top1_equal_predict=top1, max_logit_err_vs_predict=float(np.abs(got - want).max()))
     return out
 
 
-def decode_rates(cfg, corpus: Callable[..., List[str]], prefix: str, batch: int,
-                 opts: argparse.Namespace, seed0: int) -> Dict[str, object]:
-    """Decode-only clips/s by backend, each over a fresh corpus: the process
-    pool at each worker count, then the native libraries at the largest
-    count of threads (``{"ran": false, "why": ...}`` where a library's
-    toolchain is missing; a build or decode that fails raises)."""
-    rates: Dict[str, object] = {}
-    for i, w in enumerate(opts.decode_workers):
-        paths = corpus(f"{prefix}w{w}_", opts.corpus_clips + w, seed0 + 100 * i)
-        rates[str(w)] = decode_rate(cfg, paths, batch, w)
+def decode_fast_gate(model: api.Model, pools: CellPools, paths: Sequence[str], batch: int,
+                     workers: int) -> Dict[str, object]:
+    """Whether libav's ``FAST_ALL`` may decode the cell's av streams
+    (``asltpu/benchmark.py:243-296``): ``paths`` decoded exactly and with
+    ``FAST_ALL``, each through ``predict``; promoted when every top-1
+    matches, or when at most one clip flips and the largest logit gap stays
+    under ``GATE_REL_LOGIT_DELTA`` of the exact logits' spread."""
+    def logits(flags):
+        pool = pools.get("av", workers, flags)
+        return np.concatenate([api.predict(model, frames)[1][:len(kept)]
+                               for frames, kept in pool.map_batches(paths, batch)])
+
+    ex, fa = logits(0), logits(native.FAST_ALL)
+    n = len(ex)
+    match = float(np.mean(ex.argmax(-1) == fa.argmax(-1)))
+    spread = float(ex.max() - ex.min()) or 1.0
+    rel_delta = float(np.abs(ex - fa).max()) / spread
+    promoted = match == 1.0 or (match >= (n - 1) / n and rel_delta < GATE_REL_LOGIT_DELTA)
+    verdict = ("promoted" if promoted else
+               f"rejected: top1_match={match:.3f} rel_logit_delta={rel_delta:.3f}")
+    return {"ran": True, "verdict": verdict, "promoted": promoted, "top1_match": match,
+            "rel_logit_delta": rel_delta, "clips": n, "fast_flags": native.FAST_ALL}
+
+
+def scaling_fit(rates: Dict[str, float], device_rate: float) -> Dict[str, object]:
+    """The decode-worker scaling model ``min(workers * r1, device_rate)``
+    (``asltpu/benchmark.py:1452-1480``): ``r1`` is the per-worker rate at
+    the fewest workers measured (one worker's rate where 1 was measured),
+    ``device_rate`` the cell's device-only clips/s, and the projection the
+    workers that would reach it."""
+    w0 = min(rates, key=int)
+    r1 = rates[w0] / int(w0)
+    return {"fit": "min(workers * r1, device_rate)", "r1_clips_per_s_per_worker": r1,
+            "r1_from_workers": int(w0), "device_rate_clips_per_s": device_rate,
+            "fit_clips_per_s_by_workers": {w: min(int(w) * r1, device_rate) for w in rates},
+            "projected_workers_for_device_rate": math.ceil(device_rate / r1)}
+
+
+def _native_rows() -> List[Tuple[str, str, str, int, Optional[str]]]:
+    """``NATIVE_DECODE`` with each row's missing toolchain (None where present)."""
+    return [(row, backend, lib, flags, native.toolchain_missing(lib))
+            for row, backend, lib, flags in NATIVE_DECODE]
+
+
+def decode_rows(pools: CellPools, files: Dict[str, List[str]], prefix: str, batch: int,
+                workers: Sequence[int]) -> Dict[str, object]:
+    """Decode-only clips/s by backend, each over its own fresh corpus
+    ``files[prefix + row]``: the process pool at each count of ``workers``
+    (``process``), then the native libraries at the largest count of
+    threads (``{"ran": false, "why": ...}`` where a library's toolchain is
+    missing; a build or decode that fails raises)."""
+    rates = {str(w): decode_rate(pools.get("process", w), files[f"{prefix}w{w}"], batch)
+             for w in workers}
     out: Dict[str, object] = {"process": {"ran": True, "clips_per_s_by_workers": rates}}
-    threads = max(opts.decode_workers)
-    for k, (row, backend, lib, flags) in enumerate(NATIVE_DECODE):
-        missing = native.toolchain_missing(lib)
+    threads = max(workers)
+    for row, backend, _, flags, missing in _native_rows():
         if missing:
             out[row] = {"ran": False, "why": missing}
             continue
-        paths = corpus(f"{prefix}{row}_", opts.corpus_clips + threads, seed0 + 500 + 100 * k)
         out[row] = {"ran": True, "threads": threads, "fast_flags": flags,
-                    "clips_per_s": decode_rate(cfg, paths, batch, threads, backend, flags)}
+                    "clips_per_s": decode_rate(pools.get(backend, threads, flags),
+                                               files[prefix + row], batch)}
+    return out
+
+
+def _plan_corpora(family: str, lane: str, batch: int, opts: argparse.Namespace,
+                  realistic: bool) -> Dict[str, Tuple[int, Tuple[int, int]]]:
+    """Every corpus a video cell's mp4 parts read, retries excepted: name →
+    (files, (H, W)). ``warm`` starts the pools."""
+    workers = max(opts.decode_workers)
+    square, big = (opts.clip_size, opts.clip_size), opts.realistic_size
+    natives = [row for row, *_, missing in _native_rows() if not missing]
+    plan = {"warm": (workers, square)}
+    plan.update({f"decode_w{w}": (opts.corpus_clips, square) for w in opts.decode_workers})
+    plan.update({f"decode_{row}": (opts.corpus_clips, square) for row in natives})
+    av = native.toolchain_missing("av") is None
+    for row in ("auto", "process") + (("av",) if av else ()):
+        plan[f"mp4_{row}"] = (opts.mp4_batches * batch, square)
+    if realistic:
+        plan[f"r_decode_w{workers}"] = (REALISTIC_DECODE_CLIPS, big)
+        plan.update({f"r_decode_{row}": (REALISTIC_DECODE_CLIPS, big) for row in natives})
+        plan.update({f"r_scaling_w{w}": (SCALING_CLIPS, big) for w in opts.decode_workers})
+        plan["r_mp4"] = ((1 + opts.windows) * batch, big)
+        if av:
+            plan["r_mp4_fast"] = plan["r_mp4"]
+            if not opts.decode_fast:
+                plan["gate"] = (GATE_CLIPS, square)
+    return plan
+
+
+def bench_mp4(model: api.Model, family: str, lane: str, batch: int,
+              opts: argparse.Namespace, corpus: Corpus,
+              device_rate: float) -> Dict[str, object]:
+    """The cell's ``decode`` and ``mp4_stream`` and, on ``REALISTIC_CELLS``
+    unless ``--no-realistic-corpus``, its ``realistic`` block. Every corpus
+    but a retry's is written first (``corpus_s``), the writers idle before
+    the first measurement; each pool starts once (:class:`CellPools`)."""
+    realistic = opts.realistic and (family, lane) in REALISTIC_CELLS
+    workers = max(opts.decode_workers)
+    prefix = f"{family}_{lane}_"
+    t0 = time.perf_counter()
+    files = {name: corpus(f"{prefix}{name}_", n, size)
+             for name, (n, size) in _plan_corpora(family, lane, batch, opts, realistic).items()}
+    cell: Dict[str, object] = {"corpus_s": time.perf_counter() - t0}
+    trace = os.path.join(opts.trace, f"{family}_{lane}") if opts.trace else None
+
+    def row_trace(row):
+        return os.path.join(trace, row) if trace else None
+
+    with contextlib.closing(CellPools(model.cfg.preprocess, files["warm"])) as pools:
+        cell["decode"] = {"ran": True, "clips": opts.corpus_clips,
+                          "clip": {"size": [opts.clip_size] * 2, "frames": opts.clip_frames},
+                          **decode_rows(pools, files, "decode_", batch, opts.decode_workers)}
+        av_missing = native.toolchain_missing("av")
+        if not realistic:
+            gate: Dict[str, object] = {}
+        elif av_missing:
+            gate = {"ran": False, "why": av_missing}
+        elif opts.decode_fast:
+            gate = {"ran": False, "why": "--decode-fast: the av streams decode with FAST_ALL"}
+        else:
+            gate = decode_fast_gate(model, pools, files["gate"], batch, workers)
+        fast = opts.decode_fast or bool(gate.get("promoted"))
+
+        sel = reference_rates(cell["decode"], model.device, device_rate)
+        mp4: Dict[str, object] = {"ran": True, "workers": workers}
+        for row in ("auto", "process", "av"):
+            if row == "av" and av_missing:
+                mp4[row] = {"ran": False, "why": av_missing}
+                continue
+            pool = pools.get(row, workers, native.FAST_ALL if row == "av" and fast else 0)
+            mp4[row] = mp4_row(model, pool, files[f"mp4_{row}"], batch, opts.windows, sel,
+                               corpus, f"{prefix}mp4_{row}_", (opts.clip_size,) * 2,
+                               row_trace(f"mp4_{row}"))
+        cell["mp4_stream"] = mp4
+        if realistic:
+            t0 = time.perf_counter()
+            cell["realistic"] = realistic_block(model, pools, batch, opts, corpus, files,
+                                                prefix, device_rate, gate, row_trace)
+            cell["realistic"]["seconds"] = time.perf_counter() - t0
+    return cell
+
+
+def realistic_block(model: api.Model, pools: CellPools, batch: int,
+                    opts: argparse.Namespace, corpus: Corpus, files: Dict[str, List[str]],
+                    prefix: str, device_rate: float, gate: Dict[str, object],
+                    row_trace: Callable[[str], Optional[str]]) -> Dict[str, object]:
+    """The 640×480 measurements of one cell on its written corpora
+    (``files["r_*"]``)."""
+    big = opts.realistic_size
+    workers = max(opts.decode_workers)
+    decode_only = {"clips": REALISTIC_DECODE_CLIPS,
+                   **decode_rows(pools, files, "r_decode_", batch, [workers])}
+    rates = {str(w): decode_rate(pools.get("process", w), files[f"r_scaling_w{w}"], batch)
+             for w in opts.decode_workers}
+    out: Dict[str, object] = {
+        "ran": True, "clip": {"size": list(big), "frames": opts.clip_frames},
+        "workers": workers, "decode_only": decode_only,
+        "scaling": {"backend": "process", "clips": SCALING_CLIPS,
+                    "clips_per_s_by_workers": rates, **scaling_fit(rates, device_rate)},
+        "decode_fast_gate": gate,
+    }
+    sel = reference_rates(decode_only, model.device, device_rate)
+    out["mp4_stream"] = mp4_row(model, pools.get("auto", workers), files["r_mp4"], batch,
+                                opts.windows, sel, corpus, f"{prefix}r_mp4_", big,
+                                row_trace("realistic_mp4"))
+    missing = native.toolchain_missing("av")
+    if missing:
+        out["mp4_stream_fast"] = {"ran": False, "why": missing}
+        return out
+    out["mp4_stream_fast"] = mp4_row(
+        model, pools.get("av", workers, native.FAST_ALL), files["r_mp4_fast"], batch,
+        opts.windows, sel, corpus, f"{prefix}r_mp4_fast_", big,
+        row_trace("realistic_mp4_fast"), reference_pool=pools.get("av", workers),
+        require_top1=False)
     return out
 
 
 def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
-               device: torch.device, corpus: Optional[Callable[..., List[str]]],
-               seed0: int) -> Dict[str, object]:
-    """Every measurement of one (family, lane) cell. ``corpus(prefix, n,
-    seed0)`` writes fresh mp4s (None where OpenCV is missing); ``seed0``
-    seeds this cell's."""
+               device: torch.device, corpus: Optional[Corpus]) -> Dict[str, object]:
+    """Every measurement of one (family, lane) cell. ``corpus`` writes fresh
+    mp4s (None where OpenCV is missing)."""
     clock = Clock.for_device(device)
     pp = _preprocess(lane, opts)
     model = api.load_model(family, seed=opts.seed, device=device, preprocess=pp)
@@ -573,17 +937,10 @@ def bench_cell(family: str, lane: str, batch: int, opts: argparse.Namespace,
 
     if corpus is None:
         cell["decode"] = cell["mp4_stream"] = {"ran": False, "why": _cv2_missing()}
+        if opts.realistic and (family, lane) in REALISTIC_CELLS:
+            cell["realistic"] = {"ran": False, "why": _cv2_missing()}
         return cell
-    cell["decode"] = {"ran": True, "clips": opts.corpus_clips,
-                      "clip": {"size": [opts.clip_size] * 2, "frames": opts.clip_frames},
-                      **decode_rates(cfg, corpus, f"{family}_{lane}_", batch, opts, seed0)}
-    workers = max(opts.decode_workers)
-    cell["mp4_stream"] = {"ran": True, "workers": workers}
-    for k, backend in enumerate(("auto", "process")):
-        paths = corpus(f"{family}_{lane}_mp4_{backend}_", opts.mp4_batches * batch,
-                       seed0 + 900 + 1000 * k)
-        cell["mp4_stream"][backend] = mp4_stream(model, paths, batch, workers,
-                                                 opts.windows, backend)
+    cell.update(bench_mp4(model, family, lane, batch, opts, corpus, device_only["clips_per_s"]))
     return cell
 
 
@@ -763,8 +1120,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--clip-frames", type=int, default=50)
     ap.add_argument("--no-serve", dest="serve", action="store_false",
                     help="leave out the serving points of the mobilenet_gru/rgb cell")
+    ap.add_argument("--no-realistic-corpus", dest="realistic", action="store_false",
+                    help="leave out the mobilenet_gru cells' 640x480 block")
+    ap.add_argument("--realistic-size", default="480x640", metavar="HxW",
+                    help="the realistic block's frame size")
+    ap.add_argument("--decode-fast", action="store_true",
+                    help="decode the av streams with FAST_ALL, without the gate "
+                         "(needs the av library)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="a torch.profiler capture of each timed mp4 stream under DIR")
     opts = ap.parse_args(argv)
     opts.decode_workers = [int(w) for w in opts.decode_workers.split(",")]
+    try:
+        h, w = (int(v) for v in opts.realistic_size.lower().split("x"))
+    except ValueError:
+        ap.error(f"--realistic-size {opts.realistic_size!r}: expected HxW, e.g. 480x640")
+    opts.realistic_size = (h, w)
+    if opts.decode_fast and not native.av_available():
+        ap.error(f"--decode-fast needs the av library: {native.av_unavailable_reason()}")
     return opts
 
 
@@ -784,9 +1157,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
             tmp = stack.enter_context(tempfile.TemporaryDirectory(prefix="asltpu_torch_bench_"))
             writers = stack.enter_context(concurrent.futures.ProcessPoolExecutor(
                 min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")))
-            corpus = functools.partial(make_corpus, writers, tmp, size=opts.clip_size,
-                                       frames=opts.clip_frames)
-        for i, pair in enumerate(opts.cells.split(",")):
+            corpus = Corpus(writers, tmp, opts.clip_frames, seed=opts.seed * 10_000_000)
+        for pair in opts.cells.split(","):
             family, lane = pair.split(":")
             batch = opts.batch or batches[(family, lane)]
             t0 = time.perf_counter()
@@ -795,8 +1167,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
             elif family == "pose_bilstm":
                 results = [bench_pose_cell(batch, opts, device)]
             else:
-                results = [bench_cell(family, lane, batch, opts, device, corpus,
-                                      seed0=(opts.seed * 10 + i) * 10_000)]
+                results = [bench_cell(family, lane, batch, opts, device, corpus)]
             for cell in results:
                 cell["seconds"] = time.perf_counter() - t0
                 print(json.dumps({"cell": f"{family}/{lane}", **cell}), file=sys.stderr,

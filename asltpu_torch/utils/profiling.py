@@ -18,15 +18,38 @@ def trace(log_dir: str) -> Iterator[None]:
 
         with trace("/tmp/asltpu_torch_trace"):
             fn(...)
+
+    On a card the profiler first runs a warm-up step whose records it
+    drops, and the capture opens on a device round trip of a few small
+    kernels: CUPTI can lose the first device records after recording
+    starts (on an H100, up to the first 7, the first call's copy and
+    kernels among them), and these take the loss. Mark the work to read
+    out of the capture with :func:`named_scope`.
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        if cuda:
+            _device_round_trip()
+        prof.step()
+        if cuda:
+            _device_round_trip()
         yield
+
+
+def _device_round_trip(kernels: int = 16) -> None:
+    import torch
+
+    x = torch.zeros(8, device="cuda")
+    for _ in range(kernels):
+        x.add_(1)
+    x.sum().item()
 
 
 def named_scope(name: str):

@@ -94,9 +94,17 @@ phase printing one JSON line:
    ``LandmarkStore.for_path`` gives ``predict``'s logits; device-only
    clips/s by CUDA events. The pose path runs no preprocess kernel.
 14. bench — ``asltpu_torch.benchmark`` in this process over its seven
-   (family, lane) cells with a short stream and the decode pool at 4
-   workers (the ``i3d:train`` cell in its two configurations); its result
-   line.
+   (family, lane) cells with a short stream, the decode pool at 4
+   workers and ``--trace`` into a temporary directory (the ``i3d:train``
+   cell in its two configurations); its result line. The two
+   ``mobilenet_gru`` cells carry the 640×480 block: decode-only by backend
+   and by worker count with the fit ``min(workers * r1, device_rate)``,
+   ``stream_predict`` over 3 batches of 32 fresh 640×480 mp4s at full
+   width, whose top-1 must equal ``predict``'s and whose capture must hold
+   the lane kernel's CUDA events, one per predict (``preprocess_rgb`` /
+   ``preprocess_yuv420``), and the decode-fast gate (not run where libav
+   does not build). Each captured stream's device busy share, the 640×480
+   rates and the gate print on lines of their own.
 15. train (run after the two_stream lane) — I3D fine-tuning at full
    width: ``build_trainable("i3d")`` (2000 classes, 64 frames of 256²
    staged, crop 224, bf16 compute with fp32 masters, remat on) at
@@ -215,7 +223,9 @@ counts each artifact's run in the fresh process (``export/<config>``), and
 phase learn counts its ``asl train`` runs (``cli/train``); phase dist
 counts (a) and (b) as ``dist/dp_train``, (c) as ``dist/tp_train``, (d) as
 ``dist/sharded_predict`` and (e) as ``dist/cli_train``, each rank process
-from 0 before its run, reporting its count to this process.
+from 0 before its run, reporting its count to this process; phase bench
+counts each 640×480 stream (``bench/realistic_rgb``,
+``bench/realistic_yuv420``) from 0 just before its ``stream_predict``.
 Then the card's ``nvidia-smi`` line, the kernels' JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero; on
 a host without a CUDA device it exits nonzero before doing anything. At the
@@ -1707,12 +1717,20 @@ def _train_family(name):
 
 def phase_bench():
     """The port's bench in this process, over its cells, with a short
-    stream; every video cell's rgb or yuv420 kernel must have launched, and
-    the train cell's once a step. Then the train step's timings, each on a
-    line of its own."""
+    stream and ``--trace``; every video cell's rgb or yuv420 kernel must have
+    launched, and the train cell's once a step. The two ``mobilenet_gru``
+    cells' 640×480 streams must give ``predict``'s top-1, and each one's
+    capture must hold its lane kernel's CUDA events, one per predict of
+    the stream (as the kernel's count). Then the train step's timings and
+    the 640×480 numbers (decode by backend and by worker count, the fit,
+    mp4 → logits, the gate) and each captured stream's device busy share,
+    each on a line of its own. Returns the kernels' launches in the 640×480
+    streams, by path."""
     from asltpu_torch import benchmark
 
-    result = benchmark.run(BENCH_ARGS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as trace:
+        result = benchmark.run(BENCH_ARGS + ["--trace", trace])
+    launches = {}
     for cell in result["cells"]:
         if cell["lane"] == "train":
             if cell["kernel_launches_per_step"] != 1:
@@ -1724,6 +1742,19 @@ def phase_bench():
         if cell["device_only"]["kernel_launches_per_predict"] < 1:
             raise AssertionError(f"bench {cell['family']}/{cell['lane']}: "
                                  "the preprocess kernel did not launch")
+        if (cell["family"], cell["lane"]) not in benchmark.REALISTIC_CELLS:
+            continue
+        real = cell["realistic"]
+        stream = real["mp4_stream"]
+        kernel = benchmark.KERNELS[cell["lane"]]
+        counts = (stream["trace"]["kernel_events"], stream["kernel_launches"])
+        if (stream["kernel"] != kernel or not stream["top1_equal_predict"]
+                or counts != (stream["predict_calls"],) * 2):
+            raise AssertionError(
+                f"bench realistic {cell['lane']}: {kernel} CUDA events in the trace and "
+                f"launches {counts} for {stream['predict_calls']} predicts, top-1 equal "
+                f"{stream['top1_equal_predict']}")
+        launches[f"bench/realistic_{cell['lane']}"] = stream["kernel_launches"]
     emit({"phase": "bench", "args": BENCH_ARGS, **result})
     # The train step's timings, each on a line of its own: the production
     # configuration (batch 8, remat on) of the bench's i3d/train cell.
@@ -1735,7 +1766,57 @@ def phase_bench():
     print(f"train GFLOP per clip (forward + backward): {cell['gflops_per_clip']} "
           f"(remat recompute {cell['recompute_gflops_per_clip']} apart)", flush=True)
     print(f"train MFU: {cell['mfu']}", flush=True)
-    return result
+    for cell in result["cells"]:
+        name = f"{cell['family']}/{cell['lane']}"
+        if "realistic" in cell:
+            _print_realistic(name, cell["realistic"])
+        for row, r in cell.get("mp4_stream", {}).items():
+            if isinstance(r, dict) and "trace" in r:
+                _print_trace(f"{name} mp4_stream {row} ({r['backend']})", r)
+        for row in ("mp4_stream", "mp4_stream_fast"):
+            r = cell.get("realistic", {}).get(row, {})
+            if "trace" in r:
+                _print_trace(f"{name} realistic {row} ({r['backend']})", r)
+    return launches
+
+
+def _print_realistic(name, real):
+    """The 640×480 block's numbers of one bench cell, a line each."""
+    size = "x".join(map(str, real["clip"]["size"]))
+    rows = []
+    for row, r in real["decode_only"].items():
+        if row == "process":
+            rows += [f"process {w} workers {v}" for w, v in r["clips_per_s_by_workers"].items()]
+        elif isinstance(r, dict):
+            rows.append(f"{row} {r['clips_per_s'] if r['ran'] else 'not run: ' + r['why']}")
+    print(f"bench {name} {size} decode clips/s by backend: " + ", ".join(rows), flush=True)
+    sc = real["scaling"]
+    print(f"bench {name} {size} decode clips/s by workers ({sc['backend']}): "
+          f"{sc['clips_per_s_by_workers']}; fit {sc['fit']}: r1 "
+          f"{sc['r1_clips_per_s_per_worker']} (from {sc['r1_from_workers']} workers), "
+          f"device_rate {sc['device_rate_clips_per_s']}, fit by workers "
+          f"{sc['fit_clips_per_s_by_workers']}, projected workers for the device rate "
+          f"{sc['projected_workers_for_device_rate']}", flush=True)
+    for row in ("mp4_stream", "mp4_stream_fast"):
+        r = real[row]
+        if not r.get("clips_per_s"):
+            print(f"bench {name} {size} {row}: not run: {r['why']}", flush=True)
+            continue
+        retry = (f", retried after {r['retry_trigger']} (first windows "
+                 f"{r['first_attempt_windows']})" if "retry_trigger" in r else "")
+        print(f"bench {name} {size} {row} mp4 -> logits clips/s (median window, "
+              f"{r['backend']}, fast_flags {r['fast_flags']}): {r['clips_per_s']} (overall "
+              f"{r['overall_clips_per_s']}, fill {r['fill_s']} s, windows "
+              f"{r['window_clips_per_s']}, top-1 equal predict {r['top1_equal_predict']}, "
+              f"largest logit gap {r['max_logit_err_vs_predict']}{retry})", flush=True)
+    print(f"bench {name} decode_fast_gate: {json.dumps(real['decode_fast_gate'])}", flush=True)
+
+
+def _print_trace(what, r):
+    t = r["trace"]
+    print(f"bench trace {what}: device busy share {t['busy_share']} "
+          f"({t['device_busy_ms']} of {t['span_ms']} ms), {r['kernel']} CUDA events "
+          f"{t['kernel_events']} for {r['predict_calls']} predicts", flush=True)
 
 
 # Phase serve: the HTTP server at full width (module docstring, phase 16).
@@ -2850,7 +2931,9 @@ def _run() -> int:
     yuv_by_path["export/mobilenet_gru/yuv420"] = exported.pop("export/mobilenet_gru/yuv420")
     rgb_by_path.update(exported)
     rgb_by_path["cli/train"] = phase_learn()
-    phase_bench()
+    bench_launches = phase_bench()
+    rgb_by_path["bench/realistic_rgb"] = bench_launches["bench/realistic_rgb"]
+    yuv_by_path["bench/realistic_yuv420"] = bench_launches["bench/realistic_yuv420"]
     dist_launches, dist_timing = phase_dist()
     rgb_by_path.update(dist_launches)
 

@@ -12,16 +12,26 @@ from asltpu_torch import benchmark, native
 TINY = ["--device", "cpu", "--batch", "2", "--frames", "2", "--staging", "40",
         "--crop", "32", "--clip-size", "48", "--clip-frames", "8",
         "--stream-batches", "4", "--windows", "2", "--decode-workers", "1",
-        "--corpus-clips", "3", "--mp4-batches", "2"]
+        "--corpus-clips", "3", "--mp4-batches", "2", "--no-realistic-corpus"]
 BOTH = ["--cells", "mobilenet_gru:yuv420,resnet_transformer:rgb"]
 CELL_KEYS = {"family", "lane", "batch", "input", "compute_dtype", "preprocess",
-             "device", "device_only", "gflops_per_clip", "stream", "decode",
+             "device", "device_only", "gflops_per_clip", "stream", "corpus_s", "decode",
              "mp4_stream", "seconds"}
 DEVICE_ONLY_KEYS = {"clips_per_s", "ms_per_batch", "plain_clips_per_s",
                     "plain_ms_per_batch", "kernel", "kernel_launches_per_predict",
                     "max_logit_err_vs_plain", "stage_ms", "peak_mem_gb", "timer"}
 STREAM_KEYS = {"clips_per_s", "window_clips_per_s", "fill_s", "fill_clips",
                "overall_clips_per_s", "windowed_batches", "clips"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny shapes gain nothing from more, and a
+    parallel test run shares the host's cores between its workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_bench_on_cpu_both_families(capsys):
