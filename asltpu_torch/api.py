@@ -55,6 +55,7 @@ from asltpu_torch.models.fusion import TwoStreamFusion
 from asltpu_torch.models.i3d import I3D
 from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
 from asltpu_torch.ops.preprocess import preprocess_clip
+from asltpu_torch.utils import profiling
 
 _log = logging.getLogger("asltpu_torch.stream")
 
@@ -325,8 +326,9 @@ def stream_predict(
 
     def results(batches):
         with Prefetcher(batches, depth=prefetch_depth, device=model.device) as pf:
-            for *xs, kept in pf:
-                logits = fn(*xs).cpu().numpy()[: len(kept)]
+            for b, (*xs, kept) in enumerate(pf):
+                with profiling.span("stream.predict", batch=b):
+                    logits = fn(*xs).cpu().numpy()[: len(kept)]
                 ids = logits.argmax(axis=-1)
                 for j, k in enumerate(kept):
                     yield out_of[k], gloss_label(ids[j], gloss_names), logits[j]

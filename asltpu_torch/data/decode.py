@@ -24,6 +24,9 @@ from __future__ import annotations
 
 import logging
 import multiprocessing
+import os
+import threading
+import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
@@ -33,6 +36,7 @@ from asltpu_torch import native
 from asltpu_torch.config import PreprocessConfig
 from asltpu_torch.data.pad import pad_to_batch
 from asltpu_torch.data.staging import resize_plan, uniform_sample_indices
+from asltpu_torch.utils.profiling import record_span, span
 
 _log = logging.getLogger("asltpu_torch.decode")
 
@@ -252,6 +256,14 @@ def decode_item(item, cfg: PreprocessConfig) -> np.ndarray:
     return decode_clip(item, cfg)
 
 
+def _timed_decode(item, cfg: PreprocessConfig):
+    """:func:`decode_item` in a worker, with the worker's own stamps:
+    (frames, start_ns, end_ns, pid, native thread id)."""
+    t0 = time.time_ns()
+    frames = decode_item(item, cfg)
+    return frames, t0, time.time_ns(), os.getpid(), threading.get_native_id()
+
+
 def _limit_cv2_threads():
     _cv2().setNumThreads(0)
 
@@ -320,7 +332,8 @@ class NativeDecodePool:
                 for k in range(min(ahead, len(chunks)))]
         try:
             for ci, (base, items) in enumerate(chunks):
-                frames, ok = futs[ci].result()
+                with span("decode.wait", batch=ci):
+                    frames, ok = futs[ci].result()
                 futs[ci] = None  # a Future keeps its result array alive
                 nxt = ci + ahead
                 if nxt < len(chunks):
@@ -334,7 +347,9 @@ class NativeDecodePool:
                     if not good:
                         continue
                     frames = frames[good]
-                yield pad_to_batch(frames, batch_size), [base + j for j in good]
+                with span("decode.stack", batch=ci):
+                    frames = pad_to_batch(frames, batch_size)
+                yield frames, [base + j for j in good]
         finally:
             for f in futs:
                 if f is not None:
@@ -389,7 +404,9 @@ class DecodePool:
     ):
         """Yield ``(frames [B, T, ...] u8, kept_indices)`` in submission
         order; the final short batch is padded by repeating the last clip
-        (``kept_indices`` carries the true members).
+        (``kept_indices`` carries the true members). Spans: ``decode.clip``
+        per clip in its worker, ``decode.wait`` for a batch's clips,
+        ``decode.stack`` for its stack and pad (``batch``: the batch's index).
 
         ``on_error="skip"`` drops undecodable clips with a warning instead
         of failing the stream; a batch whose clips all fail is skipped.
@@ -404,28 +421,35 @@ class DecodePool:
         def top_up(upto):
             nonlocal next_submit
             while next_submit < min(upto, len(paths)):
-                futures.append(self.submit(paths[next_submit]))
+                futures.append(self._pool.submit(_timed_decode, paths[next_submit], self.cfg))
                 next_submit += 1
 
         top_up(window)
         for i in range(0, len(paths), batch_size):
+            b = i // batch_size
             top_up(i + batch_size + window)
             chunk = futures[i : i + batch_size]
             # Release consumed futures: a Future retains its result array.
             futures[i : i + batch_size] = [None] * len(chunk)
             clips, kept = [], []
-            for j, f in enumerate(chunk):
-                try:
-                    clips.append(f.result())
+            with span("decode.wait", batch=b):
+                for j, f in enumerate(chunk):
+                    try:
+                        clip, t0, t1, pid, tid = f.result()
+                    except Exception:
+                        if on_error == "raise":
+                            raise
+                        _log.warning("skipping undecodable clip %s", paths[i + j],
+                                     exc_info=True)
+                        continue
+                    record_span("decode.clip", t0, t1, pid=pid, tid=tid, batch=b)
+                    clips.append(clip)
                     kept.append(i + j)
-                except Exception:
-                    if on_error == "raise":
-                        raise
-                    _log.warning("skipping undecodable clip %s", paths[i + j],
-                                 exc_info=True)
             if not clips:
                 continue
-            yield pad_to_batch(np.stack(clips), batch_size), kept
+            with span("decode.stack", batch=b):
+                frames = pad_to_batch(np.stack(clips), batch_size)
+            yield frames, kept
 
     def shutdown(self):
         """Cancel the queued decodes and wait for the running ones, so no

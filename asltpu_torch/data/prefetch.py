@@ -7,16 +7,23 @@ CUDA device it also pins each numpy array of a batch and starts its copy on
 a stream of its own (``non_blocking``), recording an event after the copy.
 The consumer makes its current stream wait on that event before it uses the
 batch, so the copy of batch i+1 runs while the card computes batch i.
+
+Spans (``batch``: the batch's index in the stream): ``prefetch.pin`` (pin
+and copy enqueue) and ``prefetch.put_wait`` (blocked on a full queue) on
+the background thread, ``stream.wait`` (the consumer's wait for a batch).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Any, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+from asltpu_torch.utils.profiling import span
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -77,16 +84,18 @@ class Prefetcher:
 
     def _worker(self):
         try:
-            for batch in self._host_iter:
+            for b, batch in enumerate(self._host_iter):
                 if self._stop.is_set():
                     break
-                item = self._to_device(batch)
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                with span("prefetch.pin", batch=b):
+                    item = self._to_device(batch)
+                with span("prefetch.put_wait", batch=b):
+                    while not self._stop.is_set():
+                        try:
+                            self._q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
         except BaseException as e:  # handed to the consumer, which re-raises
             self._err = e
         finally:
@@ -118,8 +127,9 @@ class Prefetcher:
         self.close()
 
     def __iter__(self) -> Iterator[Any]:
-        while True:
-            item = self._q.get()
+        for b in itertools.count():
+            with span("stream.wait", batch=b):
+                item = self._q.get()
             if item is self._SENTINEL:
                 if self._err is not None:
                     raise self._err

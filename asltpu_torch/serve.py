@@ -17,6 +17,7 @@ batched streaming inference run as a long-lived service. Counterpart of
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -29,14 +30,23 @@ import torch
 from asltpu_torch.api import Model, gloss_label
 from asltpu_torch.config import PoseBiLSTMConfig
 from asltpu_torch.data.pad import pad_to_batch
+from asltpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
 class ServerStats:
+    """Counters of the batches served, always kept. Latency runs from
+    ``submit`` to the answer; queue wait from ``submit`` to the batcher
+    taking the request off the queue; assembly is the stack and pad of a
+    batch, copy its transfer to the model's device."""
+
     requests: int = 0
     batches: int = 0
     padded_slots: int = 0
     total_latency_s: float = 0.0
+    total_queue_wait_s: float = 0.0
+    total_assemble_s: float = 0.0
+    total_copy_s: float = 0.0
 
     @property
     def avg_batch_size(self) -> float:
@@ -46,15 +56,32 @@ class ServerStats:
     def avg_latency_ms(self) -> float:
         return 1e3 * self.total_latency_s / self.requests if self.requests else 0.0
 
+    @property
+    def avg_queue_wait_ms(self) -> float:
+        return 1e3 * self.total_queue_wait_s / self.requests if self.requests else 0.0
+
+    @property
+    def avg_assemble_ms(self) -> float:
+        return 1e3 * self.total_assemble_s / self.batches if self.batches else 0.0
+
+    @property
+    def avg_copy_ms(self) -> float:
+        return 1e3 * self.total_copy_s / self.batches if self.batches else 0.0
+
 
 class _Request:
-    __slots__ = ("frames", "landmarks", "future", "t_submit")
+    """One clip in flight; ``t_submit`` and ``t_taken`` (off the queue) in
+    ``time.time_ns()``, the clock of the program's spans."""
 
-    def __init__(self, frames, landmarks):
+    __slots__ = ("frames", "landmarks", "future", "id", "t_submit", "t_taken")
+
+    def __init__(self, frames, landmarks, rid: int):
         self.frames = frames
         self.landmarks = landmarks
         self.future: Future = Future()
-        self.t_submit = time.perf_counter()
+        self.id = rid
+        self.t_submit = time.time_ns()
+        self.t_taken = 0
 
 
 class PredictServer:
@@ -91,6 +118,7 @@ class PredictServer:
             raise ValueError(f"batch_buckets must be >= 1: {buckets}")
         self.batch_buckets = tuple(buckets)
         self.stats = ServerStats()
+        self._request_ids = itertools.count()
         self._fn = model.predict_fn()
         self._pose_only = isinstance(model.cfg, PoseBiLSTMConfig)
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
@@ -150,7 +178,7 @@ class PredictServer:
                 f"landmarks shape {tuple(np.shape(landmarks))} != expected "
                 f"{self._lm_shape}"
             )
-        req = _Request(frames, landmarks)
+        req = _Request(frames, landmarks, next(self._request_ids))
         with self._submit_lock:
             if not self._running:
                 raise RuntimeError("server is shut down")
@@ -167,10 +195,11 @@ class PredictServer:
     # ------------------------------------------------------------------
     def _collect(self) -> List[_Request]:
         """Block for the first request, then drain up to max_batch or until
-        max_delay elapses."""
+        max_delay elapses; each request is stamped as it is taken."""
         first = self._q.get()
         if first is None:
             return []
+        first.t_taken = time.time_ns()
         batch = [first]
         deadline = time.perf_counter() + self.max_delay_s
         while len(batch) < self.max_batch:
@@ -184,6 +213,7 @@ class PredictServer:
             if item is None:
                 self._q.put(None)  # re-signal shutdown for the outer loop
                 break
+            item.t_taken = time.time_ns()
             batch.append(item)
         return batch
 
@@ -194,12 +224,14 @@ class PredictServer:
                 return b
         return self.max_batch
 
-    def _run(self, args: Tuple[np.ndarray, ...]) -> np.ndarray:
-        """A padded host batch → logits on the host: copy to the device,
-        predict (the pose model takes the landmarks alone), copy back."""
+    def _copy_in(self, args: Tuple[np.ndarray, ...]) -> List[torch.Tensor]:
+        """A padded host batch → the model's inputs on its device (the pose
+        model takes the landmarks alone)."""
         if self._pose_only:
             args = args[-1:]
-        xs = [torch.from_numpy(a).to(self.model.device) for a in args]
+        return [torch.from_numpy(a).to(self.model.device) for a in args]
+
+    def _predict(self, xs: List[torch.Tensor]) -> np.ndarray:
         return self._fn(*xs).cpu().numpy()
 
     def warm(self):
@@ -213,7 +245,7 @@ class PredictServer:
                 args.append(np.zeros((b, *self._frames_shape), np.uint8))
             if self._lm_shape is not None:
                 args.append(np.zeros((b, *self._lm_shape), np.float32))
-            self._run(tuple(args))
+            self._predict(self._copy_in(tuple(args)))
 
     def _assemble(self, reqs: List[_Request]) -> Tuple[np.ndarray, ...]:
         bucket = self._bucket_for(len(reqs))
@@ -227,19 +259,34 @@ class PredictServer:
         return tuple(args)
 
     def _loop(self):
-        while True:
+        now = time.time_ns
+        for batch in itertools.count():
             reqs = self._collect()
             if not reqs:
                 break
             try:
-                logits = self._run(self._assemble(reqs))[: len(reqs)]
+                t_collected = now()
+                args = self._assemble(reqs)
+                t_assembled = now()
+                xs = self._copy_in(args)
+                t_copied = now()
+                logits = self._predict(xs)[: len(reqs)]
+                t_predicted = now()
                 ids = logits.argmax(axis=-1)
-                now = time.perf_counter()
+                t_answered = now()
+                st = self.stats
+                st.total_latency_s += sum(t_answered - r.t_submit for r in reqs) / 1e9
+                st.total_queue_wait_s += sum(r.t_taken - r.t_submit for r in reqs) / 1e9
+                st.total_assemble_s += (t_assembled - t_collected) / 1e9
+                st.total_copy_s += (t_copied - t_assembled) / 1e9
+                st.requests += len(reqs)
+                st.batches += 1
                 for i, r in enumerate(reqs):
-                    self.stats.total_latency_s += now - r.t_submit
                     r.future.set_result((gloss_label(ids[i], self.gloss_names), logits[i]))
-                self.stats.requests += len(reqs)
-                self.stats.batches += 1
+                t_replied = now()
+                if profiling.recording():
+                    _record_batch(batch, reqs, (t_collected, t_assembled, t_copied,
+                                                t_predicted, t_replied))
             except Exception as e:  # fail the whole batch, keep serving
                 for r in reqs:
                     if not r.future.done():
@@ -256,3 +303,20 @@ class PredictServer:
                 break
             if item is not None and not item.future.done():
                 item.future.set_exception(RuntimeError("server is shut down"))
+
+
+def _record_batch(batch: int, reqs: List[_Request], stamps: Tuple[int, ...]) -> None:
+    """The spans of one served batch, from the batcher's stamps:
+    ``serve.batch`` (first request taken → last future set) and its
+    children ``serve.collect`` (→ deadline or full), ``serve.assemble``
+    (stack, pad), ``serve.copy`` (to the device), ``serve.predict`` (model,
+    logits back), ``serve.reply`` (argmax, futures), and each request's
+    ``serve.queue`` (submit → taken)."""
+    first = reqs[0].t_taken
+    parent = profiling.record_span("serve.batch", first, stamps[-1], batch=batch)
+    for name, a, b in zip(("serve.collect", "serve.assemble", "serve.copy", "serve.predict",
+                           "serve.reply"), (first, *stamps[:-1]), stamps):
+        profiling.record_span(name, a, b, parent=parent, batch=batch)
+    for r in reqs:
+        profiling.record_span("serve.queue", r.t_submit, r.t_taken, parent=parent,
+                              request=r.id, batch=batch)

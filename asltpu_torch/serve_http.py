@@ -22,7 +22,9 @@ Endpoints:
                                  = ``.npy`` [T, 543, 3] of a whole session
                                  (``&fps=`` for timestamps, default 25).
   - ``GET /healthz``             liveness and the model's config name
-  - ``GET /stats``               batching and latency counters
+  - ``GET /stats``               batching and latency counters; the means of a
+                                  request's queue wait and of a batch's assembly
+                                  and copy to the device
 
 Standard library only (``ThreadingHTTPServer``): one process, a thread per
 request, one batcher thread that owns the device.
@@ -96,6 +98,9 @@ def make_handler(server_state):
                     "avg_batch_size": round(st.avg_batch_size, 2),
                     "avg_latency_ms": round(st.avg_latency_ms, 2),
                     "padded_slots": st.padded_slots,
+                    "avg_queue_wait_ms": round(st.avg_queue_wait_ms, 2),
+                    "avg_assemble_ms": round(st.avg_assemble_ms, 2),
+                    "avg_copy_ms": round(st.avg_copy_ms, 2),
                 })
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})

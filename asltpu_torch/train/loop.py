@@ -58,6 +58,7 @@ from asltpu_torch.dist.multihost import is_main_process, process_count
 from asltpu_torch.dist.tp import is_tp_sharded, tp_placements, tp_shard_module
 from asltpu_torch.models.common import data_parallel
 from asltpu_torch.ops.preprocess import preprocess_clip
+from asltpu_torch.utils.profiling import span
 
 Metrics = Dict[str, torch.Tensor]
 Batch = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
@@ -215,14 +216,19 @@ def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = No
 
     With ``mesh`` the batch is this rank's rows of the global batch
     (:func:`make_train_step` cuts them), and the step and its metrics are
-    the global batch's (module docstring)."""
+    the global batch's (module docstring).
+
+    Spans, in order: ``train.preprocess``, ``train.forward`` (module and
+    loss), ``train.backward`` (``zero_grad`` and backward),
+    ``train.optimizer`` (gradient averaging, clip, AdamW, schedule,
+    metrics)."""
     augmenting = _check_augment(pp_cfg, augment)
 
     def step_fn(state: TrainState, batch_in: Batch, labels: torch.Tensor):
         module, gen = state.module, state.generator
         batch_in, extras = _split(batch_in)
         with data_parallel(mesh):
-            with torch.no_grad():
+            with span("train.preprocess"), torch.no_grad():
                 if pp_cfg is None:
                     clip = batch_in
                 elif augmenting:
@@ -231,27 +237,30 @@ def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = No
                     clip = augment_preprocess_clip(gen, batch_in, pp_cfg, augment)
                 else:
                     clip = preprocess_clip(batch_in, pp_cfg)
-            logits = module(clip, *extras, train=True, generator=gen)
-            loss = softmax_ce(logits, labels, train_cfg.label_smoothing)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        params = list(module.parameters())
-        grads = [p.grad for p in params if p.grad is not None]
-        sharded = None
-        if mesh is not None:
-            average_gradients(grads, mesh)
-            if mesh.model_size > 1:
-                sharded = [m for p, m in zip(params, _sharded_mask(module))
-                           if p.grad is not None]
-        grad_norm = clip_by_global_norm(grads, train_cfg.grad_clip_norm, sharded, mesh)
-        state.optimizer.step()
-        state.schedule.step()
-        state.step += 1
-        with torch.no_grad():
-            top1 = (logits.argmax(-1) == labels).float().mean()
-            loss = loss.detach()
-            if mesh is not None and mesh.data_group is not None:
-                loss, top1 = all_reduce_data(mesh, torch.stack([loss, top1])) / mesh.data_size
+            with span("train.forward"):
+                logits = module(clip, *extras, train=True, generator=gen)
+                loss = softmax_ce(logits, labels, train_cfg.label_smoothing)
+            with span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+        with span("train.optimizer"):
+            params = list(module.parameters())
+            grads = [p.grad for p in params if p.grad is not None]
+            sharded = None
+            if mesh is not None:
+                average_gradients(grads, mesh)
+                if mesh.model_size > 1:
+                    sharded = [m for p, m in zip(params, _sharded_mask(module))
+                               if p.grad is not None]
+            grad_norm = clip_by_global_norm(grads, train_cfg.grad_clip_norm, sharded, mesh)
+            state.optimizer.step()
+            state.schedule.step()
+            state.step += 1
+            with torch.no_grad():
+                top1 = (logits.argmax(-1) == labels).float().mean()
+                loss = loss.detach()
+                if mesh is not None and mesh.data_group is not None:
+                    loss, top1 = all_reduce_data(mesh, torch.stack([loss, top1])) / mesh.data_size
         return state, {"loss": loss, "top1": top1, "grad_norm": grad_norm.detach()}
 
     return step_fn
