@@ -10,8 +10,10 @@ Counterpart of ``asltpu/export.py``. The artifact is a directory:
                   and torch versions
 
 Loading (:func:`load_exported`) needs no model code: it imports the custom
-op registrations (:mod:`asltpu_torch.ops.preprocess_kernels`) and the
-config, never ``asltpu_torch.models``.
+op registrations (:mod:`asltpu_torch.ops.preprocess_kernels`,
+:mod:`asltpu_torch.ops.pool3d_kernels`: I3D's programs call
+``asltpu_torch::max_pool3d_same`` on either platform) and the config, never
+``asltpu_torch.models``.
 
 The preprocess dispatcher (:func:`asltpu_torch.ops.preprocess.preprocess_clip`)
 chooses its lane from the device of the frames at trace time, so an export
@@ -38,15 +40,15 @@ from torch import nn
 from asltpu_torch.config import PoseBiLSTMConfig, TwoStreamFusionConfig, get_config
 from asltpu_torch.data.pad import pad_to_batch
 from asltpu_torch.data.wlasl import gloss_label
-from asltpu_torch.ops import preprocess_kernels  # noqa: F401  (registers the custom ops)
+from asltpu_torch.ops import pool3d_kernels, preprocess_kernels  # noqa: F401  (the custom ops)
 from asltpu_torch.ops.preprocess import preprocess_clip
 
 FORMAT_VERSION = 1
 
 _PROGRAM = "program.pt2"
 _META = "meta.json"
-# The namespace of the kernels' custom ops in a traced graph.
-_OP_PREFIX = "asltpu_torch."
+# The preprocess kernels' custom ops in a traced graph.
+_OP_PREFIX = "asltpu_torch.preprocess_"
 
 
 def _cfg_to_jsonable(cfg) -> Dict[str, Any]:
@@ -102,7 +104,7 @@ class _Program(nn.Module):
 
 
 def preprocess_ops(program: torch.export.ExportedProgram) -> List[str]:
-    """The kernels' custom ops that ``program`` calls, e.g.
+    """The preprocess kernels' custom ops that ``program`` calls, e.g.
     ``["asltpu_torch::preprocess_rgb"]``."""
     names = {str(n.target) for n in program.graph.nodes
              if n.op == "call_function" and str(n.target).startswith(_OP_PREFIX)}

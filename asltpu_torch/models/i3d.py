@@ -44,7 +44,9 @@ from asltpu_torch.models.common import (
     data_parallel_mesh,
     frozen_running_stats,
     pad_same,
+    same_pads,
 )
+from asltpu_torch.ops.pool3d_kernels import max_pool3d_same
 from asltpu_torch.ops.stem_s2d import (
     STEM_KERNEL,
     STEM_STRIDE,
@@ -70,9 +72,12 @@ _MIXED = (
 
 
 def max_pool_same(x: torch.Tensor, kernel: Triple, stride: Triple) -> torch.Tensor:
-    """flax ``max_pool(padding="SAME")``: −inf pads, TF-"SAME" per axis."""
-    x, padding = pad_same(x, kernel, stride, float("-inf"))
-    return F.max_pool3d(x, kernel, stride, padding)
+    """flax ``max_pool(padding="SAME")``: −inf pads, TF-"SAME" per axis,
+    through the op ``asltpu_torch::max_pool3d_same`` (on the card the
+    hand-written kernel of :mod:`asltpu_torch.ops.pool3d_kernels`, which
+    pads implicitly)."""
+    pads = same_pads(x.shape[2:], kernel, stride)
+    return max_pool3d_same(x, kernel, stride, [p for lo_hi in pads for p in lo_hi])
 
 
 def stem_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -210,7 +215,7 @@ class I3D(nn.Module):
             if name == "Mixed_3c":
                 x = max_pool_same(x, (3, 3, 3), (2, 2, 2))
             elif name == "Mixed_4f":
-                x = F.max_pool3d(x, (2, 2, 2), (2, 2, 2))  # VALID
+                x = max_pool3d_same(x, (2, 2, 2), (2, 2, 2), (0,) * 6)  # VALID
         return x
 
     def classify(self, feats: torch.Tensor, train: bool = False,

@@ -75,7 +75,9 @@ phase printing one JSON line:
    network inflated to 3D, 2000 classes) on the rgb lane, ``predict`` on a
    seeded batch of 4 clips × 64 frames of 256² RGB, with the same checks
    as the rgb lane; the comparison on varied clips calibrates every
-   BatchNorm3d through the whole 3D backbone.
+   BatchNorm3d through the whole 3D backbone. The predict must launch the
+   max-pool kernels 13 times forward and none backward; it is timed with
+   them and with aten's pools in their place, in turns.
 11. two_stream lane — ``load_model("two_stream")`` at full width
    (MobileNetV2 ×1.0, d_model 256, 8 heads, 2 cross-attention layers, 100
    classes) on the rgb lane, ``predict`` on 16 clips × 16 frames of 256²
@@ -118,7 +120,9 @@ phase printing one JSON line:
    count, the batches, the generator's state and the lr equal the
    uninterrupted run's, its losses within three times the spread of the
    runs that were not cut. The rgb kernel must launch once in each
-   train and each eval step. Checkpoints go to a temporary directory. The
+   train and each eval step, the max-pool kernels 22 forward (13 and the
+   remat recompute's 9) and 13 backward a train step and 13 forward an
+   eval batch; the other families launch none. Checkpoints go to a temporary directory. The
    step's timings come from the bench phase's ``i3d:train`` cell (batch 8,
    remat on): ms a step by CUDA events, train clips/s, peak GB, GFLOP per
    clip of forward + backward (recompute apart) and MFU, each printed on a
@@ -212,6 +216,23 @@ phase printing one JSON line:
    lines of their own before the card's line, as information: two gloo
    ranks share one card and stage every collective through the host, so no
    number here is a multi-GPU scaling figure.
+20. pool3d (run after stem) — I3D's max-pool kernels
+   (``asltpu_torch/csrc/pool3d.cu``, the op ``asltpu_torch::max_pool3d_same``
+   and its backward) at the 13 pools of full-width I3D on 48 clips × 64
+   frames of 224² (their shapes from the model's backbone on the meta
+   device), bf16 with all-equal windows and a NaN: the forward bit for bit
+   against aten's ``max_pool3d`` after ``pad_same``'s −inf copy, the offsets
+   against the plain version's, the input gradient within one bf16 ulp of
+   aten's taken in fp32 and rounded once (aten's own bf16 gradient beside
+   it, as information); forward and backward times by CUDA events in turns
+   (aten, kernel, kernel, aten) beside the bytes' bound, aten's as
+   ``library_ms``. Then C = 132 and fp32 at small shapes, unmeasured, and
+   C = 3 and an unaligned view, which the op must refuse; then one I3D
+   train step at batch 2 with remat off and on, each against the same step
+   with aten's pools (loss and grad_norm as the train phase bounds them),
+   the kernels' launches a step (13 + 13; remat: 22 + 13). The kernels
+   line takes its launches from the main paths: the i3d lane's predict,
+   phase train's ``train()`` and eval, and the exported ``i3d/rgb``.
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
@@ -236,6 +257,7 @@ imports nothing of JAX or of the ``asltpu`` package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -343,6 +365,24 @@ def time_ms(fn, reps: int) -> float:
     from asltpu_torch.benchmark import Clock
 
     return Clock(torch.device("cuda"), reps, SAMPLES, WARMUP).ms(fn)
+
+
+def pool_launches():
+    """The max-pool kernels' launch counters, [forward, backward]."""
+    from asltpu_torch.ops import pool3d_kernels as pk
+
+    return [pk.max_pool3d_same.launches, pk.max_pool3d_same_backward.launches]
+
+
+def reset_pool_launches():
+    from asltpu_torch.ops import pool3d_kernels as pk
+
+    pk.max_pool3d_same.launches = pk.max_pool3d_same_backward.launches = 0
+
+
+# I3D's pools a forward, and those the remat recompute runs again.
+I3D_POOLS = 13
+I3D_REMAT_POOLS = 9
 
 
 def nvidia_smi() -> str:
@@ -889,11 +929,17 @@ def _lane(name, family, pp_overrides, staged_shape):
     torch.cuda.synchronize()
     k.preprocess_rgb.launches = 0
     k.preprocess_yuv420.launches = 0
+    reset_pool_launches()
     ids, logits = api.predict(model, frames, lm)
     torch.cuda.synchronize()
+    pools = pool_launches()
     launches = {"preprocess_rgb": k.preprocess_rgb.launches,
-                "preprocess_yuv420": k.preprocess_yuv420.launches}
+                "preprocess_yuv420": k.preprocess_yuv420.launches,
+                "max_pool3d_same": pools[0], "max_pool3d_same_backward": pools[1]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_pools = [I3D_POOLS if family == "i3d" else 0, 0]
+    if pools != want_pools:
+        raise AssertionError(f"{name} lane: max-pool launches {pools}, want {want_pools}")
 
     assert logits.shape == (batch, cfg.num_classes) and np.isfinite(logits).all()
     plain_model = api.load_model(
@@ -911,6 +957,14 @@ def _lane(name, family, pp_overrides, staged_shape):
     fn, plain_fn = model.predict_fn(), plain_model.predict_fn()
     ms = time_ms(lambda: fn(*xs), PREDICT_REPS)
     plain_ms = time_ms(lambda: plain_fn(*xs), PREDICT_REPS)
+    pool_turns = None
+    if family == "i3d":
+        # The same predict with aten's pools in place of the kernels, in
+        # turns: kernels, aten, aten, kernels.
+        pool_turns = {"kernels": [], "aten": []}
+        for which in ("kernels", "aten", "aten", "kernels"):
+            with _aten_pools() if which == "aten" else contextlib.nullcontext():
+                pool_turns[which].append(time_ms(lambda: fn(*xs), PREDICT_REPS))
     # The same predict, stage by stage: preprocess, backbone, head.
     with torch.inference_mode():
         split = {stage: time_ms(f, KERNEL_REPS if stage == "preprocess" else PREDICT_REPS)
@@ -929,6 +983,10 @@ def _lane(name, family, pp_overrides, staged_shape):
         "plain_device_ms_per_batch": plain_ms,
         "plain_device_clips_per_s": batch / plain_ms * 1e3,
         "stage_ms": split, "peak_mem_gb": peak_gb,
+        **({} if pool_turns is None else {
+            "device_ms_per_batch_pool_kernels": min(pool_turns["kernels"]),
+            "device_ms_per_batch_aten_pools": min(pool_turns["aten"]),
+            "pool_ms_in_turns": pool_turns}),
     })
     del model, plain_model, xs
     torch.cuda.empty_cache()
@@ -989,6 +1047,255 @@ def phase_stem():
     del x, wt, plain, s2d, model_form
     torch.cuda.empty_cache()
     return result
+
+
+# Phase pool3d: I3D's 13 max-pools at the fine-tune's batch (module
+# docstring, phase 20): their shapes from the model itself (a backbone on the
+# meta device), the kernels against the plain version, timed beside aten.
+POOL_BATCH = 48
+POOL_REPS = 5
+# Small shapes for the other access widths: C = 132 (a tensor-parallel
+# shard: 8 bytes a thread in bf16) and fp32 (16 bytes).
+POOL_TAILS = (
+    ("c132", (4, 132, 9, 14, 13), (3, 3, 3), (2, 2, 2), torch.bfloat16),
+    ("fp32", (4, 192, 8, 14, 14), (3, 3, 3), (1, 1, 1), torch.float32),
+)
+# The I3D step with the kernels against the same step with aten's pools
+# (batch 2, 64 frames of 256² staged): the forward is bit-identical, so
+# the losses agree as far as cuDNN's convolutions repeat themselves; the
+# gradients differ by cuDNN's backward and the pools' rounding.
+POOL_STEP_BATCH = 2
+
+
+def _i3d_pools(batch):
+    """(input shape, kernel, stride, pad) of each pool call of full-width
+    I3D's backbone on [batch, 64, 224, 224, 3], traced on the meta device."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from asltpu_torch.models import i3d
+
+    class Calls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.pools = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if str(func) == "asltpu_torch.max_pool3d_same.default":
+                self.pools.append((tuple(args[0].shape), *(tuple(a) for a in args[1:4])))
+            return func(*args, **(kwargs or {}))
+
+    with torch.device("meta"):
+        model = i3d.I3D(num_classes=FAMILIES["i3d"]["config"]["num_classes"], remat=False,
+                        dtype=torch.bfloat16)
+        with Calls() as calls, torch.no_grad():
+            model.backbone(torch.empty(batch, FAMILIES["i3d"]["config"]["num_frames"],
+                                       224, 224, 3))
+    return calls.pools
+
+
+def _aten_pool(x, kernel, stride, pad):
+    """What I3D ran before the op: the −inf copy of the upper pads' excess
+    (``pad_same``), then aten's ``max_pool3d`` with int64 indices (as
+    autograd records it). Returns (out, indices, the padded input, the
+    symmetric padding)."""
+    import torch.nn.functional as F
+
+    extra = []
+    for lo, hi in reversed(list(zip(pad[0::2], pad[1::2]))):
+        extra += [0, hi - lo]
+    padded = F.pad(x, extra, value=float("-inf")) if any(extra) else x
+    out, idx = torch.ops.aten.max_pool3d_with_indices(padded, kernel, stride, pad[0::2])
+    return out, idx, padded, pad[0::2]
+
+
+def _bf16_ulps_apart(got, want) -> float:
+    """The largest |got − want| in bf16 ulps of the larger magnitude of the
+    two, element by element (0 where both are 0)."""
+    g, w = got.float(), want.float()
+    m = torch.maximum(g.abs(), w.abs())
+    ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.ones_like(m))
+    return float(((g - w).abs() / ulp).max())
+
+
+def _pool_case(x, kernel, stride, pad, timed):
+    """One pool on the card: the kernels' forward against aten's bit for
+    bit and their offsets against the plain version's; their input gradient
+    within one bf16 ulp of aten's taken in fp32 and rounded once (aten's own
+    in the working dtype beside it, as information); with ``timed`` both
+    directions of both by CUDA events, beside their bounds."""
+    from asltpu_torch.ops import pool3d_kernels as pk
+
+    size = list(x.shape[2:])
+    out, off = torch.ops.asltpu_torch.max_pool3d_same.default(x, kernel, stride, pad)
+    torch.cuda.synchronize()
+    want, _, _, _ = _aten_pool(x, kernel, stride, pad)
+    int_view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    row = {"input": list(x.shape), "dtype": str(x.dtype).split(".")[1],
+           "kernel": list(kernel), "stride": list(stride), "pad": list(pad),
+           "forward_bit_identical": bool(torch.equal(out.view(int_view), want.view(int_view))),
+           "offsets_equal": bool(torch.equal(off, pk.max_pool3d_plain(x, kernel, stride,
+                                                                        pad)[1]))}
+    del want
+    gen = torch.Generator(x.device).manual_seed(SEED + 41)
+    g = torch.randn(out.shape, generator=gen, device=x.device).to(x.dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    got = pk.max_pool3d_same_backward(g, off, size, kernel, stride, pad)
+    xf = x.float().requires_grad_()
+    (exact,) = torch.autograd.grad(_aten_pool(xf, kernel, stride, pad)[0], xf, g.float())
+    row["grad_ulps_vs_fp32"] = _bf16_ulps_apart(got, exact.to(x.dtype)) if (
+        x.dtype == torch.bfloat16) else float((got - exact).abs().max())
+    del xf, exact
+    xg = x.detach().requires_grad_()
+    (aten_grad,) = torch.autograd.grad(_aten_pool(xg, kernel, stride, pad)[0], xg, g)
+    if x.dtype == torch.bfloat16:
+        row["aten_grad_ulps_vs_kernel_info"] = _bf16_ulps_apart(aten_grad, got)
+    del xg, aten_grad, got
+    if not (row["forward_bit_identical"] and row["offsets_equal"]):
+        raise AssertionError(f"max_pool3d_same forward disagrees with aten's: {row}")
+    bound = 1.0 if x.dtype == torch.bfloat16 else 1e-5
+    if not row["grad_ulps_vs_fp32"] <= bound:
+        raise AssertionError(f"max_pool3d_same backward disagrees: {row}")
+    if timed:
+        def aten_forward():
+            return _aten_pool(x, kernel, stride, pad)
+
+        _, idx, padded, sym = aten_forward()
+
+        def aten_backward():
+            return torch.ops.aten.max_pool3d_with_indices_backward(
+                g, padded, kernel, stride, sym, [1, 1, 1], False, idx)
+
+        def kernel_forward():
+            return torch.ops.asltpu_torch.max_pool3d_same.default(x, kernel, stride, pad)
+
+        def kernel_backward():
+            return pk.max_pool3d_same_backward(g, off, size, kernel, stride, pad)
+
+        ms = {}
+        for name, fn in (("library_fwd", aten_forward), ("fwd", kernel_forward),
+                         ("fwd", kernel_forward), ("library_fwd", aten_forward),
+                         ("library_bwd", aten_backward), ("bwd", kernel_backward),
+                         ("bwd", kernel_backward), ("library_bwd", aten_backward)):
+            ms.setdefault(name, []).append(time_ms(fn, POOL_REPS))
+        del idx, padded
+        item = x.element_size()
+        fwd_bytes = x.numel() * item + out.numel() * (item + 1)
+        bwd_bytes = out.numel() * (item + 1) + x.numel() * item
+        row.update({
+            "ms_fwd": min(ms["fwd"]), "ms_bwd": min(ms["bwd"]),
+            "library_ms_fwd": min(ms["library_fwd"]), "library_ms_bwd": min(ms["library_bwd"]),
+            "ms_runs": ms, "bytes_fwd": fwd_bytes, "bytes_bwd": bwd_bytes,
+            "bound_ms_fwd": fwd_bytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_ms_bwd": bwd_bytes / PEAK_BYTES_PER_S * 1e3,
+        })
+        row["share_of_bound"] = ((row["bound_ms_fwd"] + row["bound_ms_bwd"])
+                                 / (row["ms_fwd"] + row["ms_bwd"]))
+    return row
+
+
+@contextlib.contextmanager
+def _aten_pools():
+    """I3D's pools through aten (``_aten_pool``'s forward, autograd's
+    backward) instead of the op, for the step comparison."""
+    from asltpu_torch.models import i3d
+
+    saved = i3d.max_pool3d_same
+    i3d.max_pool3d_same = lambda x, kernel, stride, pad: _aten_pool(
+        x, list(kernel), list(stride), list(pad))[0]
+    try:
+        yield
+    finally:
+        i3d.max_pool3d_same = saved
+
+
+def _pool_step(remat, aten):
+    """One I3D train step (lr 0, the first of a warmup) at POOL_STEP_BATCH:
+    (loss, grad_norm, forward and backward kernel launches)."""
+    from asltpu_torch import api
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.ops import pool3d_kernels as pk
+    from asltpu_torch.train import loop
+
+    model = api.build_trainable("i3d", seed=SEED, remat=remat)
+    tcfg = TrainConfig()
+    state = loop.create_train_state(model.module, tcfg, SEED)
+    pp = model.cfg.preprocess
+    batch, labels = next(SeededBatches(
+        (POOL_STEP_BATCH, pp.num_frames, *pp.staged_frame_shape), model.cfg.num_classes,
+        model.device, seed=SEED + 42))
+    step = loop.make_step_fn(tcfg, pp)
+    with _aten_pools() if aten else contextlib.nullcontext():
+        pk.max_pool3d_same.launches = pk.max_pool3d_same_backward.launches = 0
+        state, metrics = step(state, batch, labels)
+        torch.cuda.synchronize()
+    launches = [pk.max_pool3d_same.launches, pk.max_pool3d_same_backward.launches]
+    del model, state
+    torch.cuda.empty_cache()
+    return float(metrics["loss"]), float(metrics["grad_norm"]), launches
+
+
+def phase_pool3d():
+    """I3D's max-pools on the card (module docstring, phase 20): each of the
+    13 main-path pools at the fine-tune's batch, checked and timed; the
+    narrower accesses at small shapes; one I3D train step with the kernels
+    against aten's pools, with the launches a step. Returns the summary."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(SEED + 40)
+    rows = []
+    for i, (shape, kernel, stride, pad) in enumerate(_i3d_pools(POOL_BATCH)):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        x[0, :, :3, :3, :3] = 1.5  # all-equal windows: the first maximum
+        x[1, :, 1, 1, 1] = float("nan")
+        rows.append({"pool": i, **_pool_case(x, list(kernel), list(stride), list(pad), True)})
+        del x
+        torch.cuda.empty_cache()
+    tails = []
+    for name, shape, kernel, stride, dtype in POOL_TAILS:
+        from asltpu_torch.models.common import same_pads
+
+        pad = [p for lo_hi in same_pads(shape[2:], kernel, stride) for p in lo_hi]
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(
+            memory_format=torch.channels_last_3d)
+        tails.append({"case": name, **_pool_case(x, list(kernel), list(stride), pad, False)})
+    # What no access width fits: C = 3, and a view one value off alignment.
+    n, c, t, h, w = 2, 64, 6, 9, 9
+    flat = torch.randn(n * t * h * w * c + 1, generator=gen, device=dev).to(torch.bfloat16)
+    refused = {}
+    for case, x in (("c3", torch.zeros(2, 3, 8, 15, 15, dtype=torch.bfloat16, device=dev)
+                     .contiguous(memory_format=torch.channels_last_3d)),
+                    ("unaligned", flat[1:].view(n, t, h, w, c).permute(0, 4, 1, 2, 3))):
+        before = pool_launches()
+        try:
+            torch.ops.asltpu_torch.max_pool3d_same.default(x, [3, 3, 3], [1, 1, 1], [1] * 6)
+        except ValueError as e:
+            refused[case] = str(e)
+        if case not in refused or pool_launches() != before:
+            raise AssertionError(f"pool3d: the {case} input was not refused")
+    steps = {}
+    for remat in (False, True):
+        k_loss, k_norm, k_launches = _pool_step(remat, aten=False)
+        a_loss, a_norm, a_launches = _pool_step(remat, aten=True)
+        steps["remat" if remat else "no_remat"] = {
+            "launches_fwd_bwd": k_launches, "aten_launches": a_launches,
+            "loss": k_loss, "loss_rel_err_vs_aten": abs(k_loss - a_loss) / abs(a_loss),
+            "grad_norm": k_norm, "grad_norm_rel_err_vs_aten": abs(k_norm - a_norm) / a_norm}
+    want_launches = {"no_remat": [13, 13], "remat": [13 + 9, 13]}
+    for key, st in steps.items():
+        if st["launches_fwd_bwd"] != want_launches[key] or st["aten_launches"] != [0, 0]:
+            raise AssertionError(f"pool3d: launches a step {st}, want {want_launches[key]}")
+        if (st["loss_rel_err_vs_aten"] > TRAIN_PLAIN_LOSS_RTOL
+                or st["grad_norm_rel_err_vs_aten"] > TRAIN_PLAIN_GRAD_RTOL):
+            raise AssertionError(f"pool3d: the step with the kernels disagrees: {st}")
+    summary = {key: sum(r[key] for r in rows) for key in (
+        "ms_fwd", "ms_bwd", "library_ms_fwd", "library_ms_bwd", "bound_ms_fwd", "bound_ms_bwd")}
+    summary["share_of_bound"] = ((summary["bound_ms_fwd"] + summary["bound_ms_bwd"])
+                                 / (summary["ms_fwd"] + summary["ms_bwd"]))
+    summary["max_grad_ulps"] = max(r["grad_ulps_vs_fp32"] for r in rows)
+    emit({"phase": "pool3d", "batch": POOL_BATCH, "pools": rows, "tails": tails,
+          "refused": refused, "steps": steps, "per_step": summary,
+          "peaks": {"bytes_per_s": PEAK_BYTES_PER_S, "source": "H100 SXM data sheet"}})
+    return summary
 
 
 def phase_host():
@@ -1476,8 +1783,9 @@ def _train_and_eval(name, cfg, batches, eval_set, num_steps):
     """The main path of a family's training: ``train()`` over ``batches``
     (warmup 2) with its eval on ``eval_set`` at the end and keep-best, the
     kernels' counts set to 0 just before it; the rgb kernel's launches in
-    the train steps (read when the eval begins) and in the eval. Returns
-    (state, losses, launches, best metric)."""
+    the train steps (read when the eval begins) and in the eval, and the
+    max-pool kernels' [forward, backward] in each. Returns (state, losses,
+    launches, pool launches, best metric)."""
     from asltpu_torch import api, ckpt
     from asltpu_torch.config import TrainConfig
     from asltpu_torch.ops import preprocess_kernels as k
@@ -1487,6 +1795,7 @@ def _train_and_eval(name, cfg, batches, eval_set, num_steps):
 
     def eval_batches():
         counts["before_eval"] = k.preprocess_rgb.launches
+        counts["pools_before_eval"] = pool_launches()
         return eval_set
 
     losses = []
@@ -1497,20 +1806,30 @@ def _train_and_eval(name, cfg, batches, eval_set, num_steps):
                            ckpt_dir=ckdir)
         torch.cuda.synchronize()
         k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+        reset_pool_launches()
         state = loop.train(learner.module, tcfg, batches, pp_cfg=cfg.preprocess,
                            metric_writer=lambda s, m: losses.append(m.get("loss")),
                            eval_batches=eval_batches)
         torch.cuda.synchronize()
         launches = {f"{name}/train": counts["before_eval"],
                     f"{name}/eval": k.preprocess_rgb.launches - counts["before_eval"]}
+        pools = {f"{name}/train": counts["pools_before_eval"],
+                 f"{name}/eval": [a - b for a, b in zip(pool_launches(),
+                                                        counts["pools_before_eval"])]}
         best = ckpt.load_best_metric(ckdir)
     want = {f"{name}/train": num_steps, f"{name}/eval": len(eval_set)}
     assert state.step == num_steps and launches == want, launches
+    i3d = name == "i3d"  # remat on: the recompute runs its pools again
+    want_pools = {f"{name}/train": [num_steps * (I3D_POOLS + I3D_REMAT_POOLS) * i3d,
+                                    num_steps * I3D_POOLS * i3d],
+                  f"{name}/eval": [len(eval_set) * I3D_POOLS * i3d, 0]}
+    if pools != want_pools:
+        raise AssertionError(f"{name} train: max-pool launches {pools}, want {want_pools}")
     assert k.preprocess_yuv420.launches == 0
     train_losses = [x for x in losses if x is not None]
     if not np.isfinite(train_losses).all():
         raise AssertionError(f"{name} train: losses not finite: {train_losses}")
-    return state, train_losses, launches, best
+    return state, train_losses, launches, pools, best
 
 
 def _resume_check(name):
@@ -1547,10 +1866,14 @@ def _resume_check(name):
     return resume
 
 
+I3D_TRAIN_STEPS = 10
+
+
 def phase_train():
     """I3D fine-tuning at full width on the card, then the other families'
     training (module docstring, phase 15). Returns the rgb kernel's
-    launches by path."""
+    launches by path and I3D's max-pool launches by path, [forward,
+    backward]."""
     from asltpu_torch import api
 
     model = api.build_trainable("i3d", seed=SEED)
@@ -1586,12 +1909,12 @@ def phase_train():
         raise AssertionError(f"train step: remat on vs off disagree: {checks}")
     checks["card_vs_cpu"] = _train_card_vs_cpu()
 
-    # The main path: train() for 10 steps on one fixed batch (warmup 2),
-    # then its eval; the kernel's launches counted per path.
+    # The main path: train() for I3D_TRAIN_STEPS steps on one fixed batch
+    # (warmup 2), then its eval; the kernels' launches counted per path.
     eval_stream = SeededBatches(shape, cfg.num_classes, torch.device("cuda"), seed=SEED + 14)
     eval_set = [next(eval_stream) for _ in range(2)]
-    state, train_losses, launches, best = _train_and_eval(
-        "i3d", cfg, [(batch, labels)] * 10, eval_set, 10)
+    state, train_losses, launches, pools, best = _train_and_eval(
+        "i3d", cfg, [(batch, labels)] * I3D_TRAIN_STEPS, eval_set, I3D_TRAIN_STEPS)
     if not train_losses[-1] < train_losses[0]:
         raise AssertionError(f"train: the loss did not fall on a fixed batch: {train_losses}")
     del state
@@ -1601,11 +1924,11 @@ def phase_train():
     torch.cuda.empty_cache()
     emit({"phase": "train", "family": "i3d", "input": list(shape), "batch": TRAIN_BATCH,
           "compute_dtype": cfg.compute_dtype, "param_dtype": "float32", "remat": True,
-          "launches": launches, "first_step": checks, "learning_losses": train_losses,
-          "best": best, "resume": resume})
+          "launches": launches, "pool_launches": pools, "first_step": checks,
+          "learning_losses": train_losses, "best": best, "resume": resume})
     for name in TRAIN_FAMILIES:
         launches.update(_train_family(name))
-    return launches
+    return launches, pools
 
 
 def _train_timing(name, cfg, batch_in, labels):
@@ -1688,13 +2011,13 @@ def _train_family(name):
     eval_set = [next(eval_stream) for _ in range(2)]
     learns = name == "mobilenet_gru"
     steps = 10 if learns else TRAIN_SHORT_STEPS
-    state, losses, launches, best = _train_and_eval(
+    state, losses, launches, pools, best = _train_and_eval(
         name, cfg, [(batch, labels)] * steps, eval_set, steps)
     del state
     line = {"phase": "train", "family": name, "input": list(shape),
             "landmarks": None if lm is None else list(lm.shape), "batch": TRAIN_BATCH,
             "compute_dtype": cfg.compute_dtype, "param_dtype": "float32",
-            "launches": launches, "first_step": checks, "losses": losses, "best": best}
+            "launches": launches, "pool_launches": pools, "first_step": checks, "losses": losses, "best": best}
     if learns:
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{name} train: the loss did not fall on a fixed batch: "
@@ -2176,7 +2499,7 @@ EXPORT_LOADER = """
 import json, sys
 import numpy as np, torch
 from asltpu_torch.export import load_exported
-from asltpu_torch.ops import preprocess_kernels as k
+from asltpu_torch.ops import pool3d_kernels as pk, preprocess_kernels as k
 d = sys.argv[1]
 runs = {}
 for name in json.load(open(d + "/cases.json")):
@@ -2185,11 +2508,14 @@ for name in json.load(open(d + "/cases.json")):
         inputs = {key: z[key] for key in z.files}
     torch.cuda.synchronize()
     k.preprocess_rgb.launches = k.preprocess_yuv420.launches = 0
+    pk.max_pool3d_same.launches = pk.max_pool3d_same_backward.launches = 0
     logits = em.predict_batch(**inputs)
     torch.cuda.synchronize()
     np.save(d + "/" + name + ".logits.npy", logits)
     runs[name] = {"preprocess_rgb": k.preprocess_rgb.launches,
                   "preprocess_yuv420": k.preprocess_yuv420.launches,
+                  "max_pool3d_same": pk.max_pool3d_same.launches,
+                  "max_pool3d_same_backward": pk.max_pool3d_same_backward.launches,
                   "preprocess": em.meta["preprocess"], "device": str(em.device)}
 model_code = sorted(m for m in sys.modules
                     if m.startswith(("asltpu_torch.models", "asltpu_torch.api")))
@@ -2219,7 +2545,8 @@ def phase_export():
     a fresh process that imports no model code, and hold its logits to the
     live ``predict_fn``'s; the kernels' launches inside the exported
     programs; exported and live device ms by CUDA events, in turns. Returns
-    the launches by path."""
+    the preprocess kernels' launches by path and the max-pool kernels'
+    [forward, backward] by path."""
     import subprocess
 
     from asltpu_torch import api
@@ -2287,12 +2614,15 @@ def phase_export():
     if loaded["model_modules"]:
         raise AssertionError(f"loading the artifacts imported model code: "
                              f"{loaded['model_modules']}")
-    launches = {}
+    launches, pools = {}, {}
     for name, row in rows.items():
         lane = "preprocess_yuv420" if name.endswith("yuv420") else "preprocess_rgb"
         want_op = None if name.startswith("pose") else "asltpu_torch::" + lane
+        pools[f"export/{row['path']}"] = [row["max_pool3d_same"],
+                                          row["max_pool3d_same_backward"]]
+        want_pools = [I3D_POOLS if name.startswith("i3d") else 0, 0]
         if (row["max_logit_err_vs_live"] > LANE_LOGIT_ATOL or row["preprocess"] != want_op
-                or (want_op and row[lane] < 1)):
+                or (want_op and row[lane] < 1) or pools[f"export/{row['path']}"] != want_pools):
             raise AssertionError(f"export {row['path']}: {row}")
         if want_op:
             launches[f"export/{row['path']}"] = row[lane]
@@ -2303,7 +2633,7 @@ def phase_export():
         print(f"export {row['path']} (batch {row['batch']}): exported {row['exported_ms']} ms, "
               f"live {row['live_ms']} ms a batch (cuda events); max logit gap "
               f"{row['max_logit_err_vs_live']}", flush=True)
-    return launches
+    return launches, pools
 
 
 # Phase learn: the learning proofs through the CLI and the library
@@ -2912,7 +3242,8 @@ def _run() -> int:
     i3d = _lane("i3d", "i3d", RGB_LANE, PreprocessConfig().staged_frame_shape)
     fusion = _lane("two_stream", "two_stream", RGB_LANE,
                    PreprocessConfig().staged_frame_shape)
-    train = phase_train()
+    train, pools_by_path = phase_train()
+    pools_by_path["i3d/predict"] = [i3d["max_pool3d_same"], i3d["max_pool3d_same_backward"]]
     rgb_by_path = {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
                    "resnet_transformer/rgb": resnet["preprocess_rgb"],
                    "i3d/rgb": i3d["preprocess_rgb"],
@@ -2920,6 +3251,7 @@ def _run() -> int:
     if min(*rgb_by_path.values(), yuv["preprocess_yuv420"]) < 1:
         raise AssertionError(f"a kernel did not run on its lane: {rgb_by_path}, {yuv}")
     phase_stem()
+    pool3d = phase_pool3d()
     phase_pose_lane()
     served, serve_timing, copy_share = phase_serve()
     rgb_by_path.update({p: served[p] for p in ("mobilenet_gru/serve", "two_stream/serve")})
@@ -2927,7 +3259,8 @@ def _run() -> int:
                    "mobilenet_gru/serve_yuv420": served["mobilenet_gru/serve_yuv420"]}
     if min(*served.values()) < 1:
         raise AssertionError(f"a kernel did not run on a serve path: {served}")
-    exported = phase_export()
+    exported, exported_pools = phase_export()
+    pools_by_path.update(exported_pools)
     yuv_by_path["export/mobilenet_gru/yuv420"] = exported.pop("export/mobilenet_gru/yuv420")
     rgb_by_path.update(exported)
     rgb_by_path["cli/train"] = phase_learn()
@@ -2962,6 +3295,20 @@ def _run() -> int:
         "share_of_bound": mbconv["bound_ms"] / mbconv["ms"],
         "per": "sums over the 12 launches of one backbone call at 512 frames "
                "(per shape: phase kernels_mbconv)",
+    })
+    kernels.append({
+        "name": "max_pool3d_same", "route": "cuda", "source": "asltpu_torch/csrc/pool3d.cu",
+        "replaces": None,
+        # [forward, backward]: phase train's train() at TRAIN_BATCH, remat on.
+        "launches_per_step": [n // I3D_TRAIN_STEPS for n in pools_by_path["i3d/train"]],
+        "launches_by_path": pools_by_path,
+        "max_grad_ulps": pool3d["max_grad_ulps"],
+        "ms": pool3d["ms_fwd"] + pool3d["ms_bwd"],
+        "bound_ms": pool3d["bound_ms_fwd"] + pool3d["bound_ms_bwd"], "bound_by": "bytes",
+        "library_ms": pool3d["library_ms_fwd"] + pool3d["library_ms_bwd"],
+        "share_of_bound": pool3d["share_of_bound"],
+        "per": "sums forward and backward over I3D's 13 pools at batch 48 "
+               "(per pool: phase pool3d)",
     })
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     # The serving timings (phase serve), each on a line of its own.

@@ -558,3 +558,69 @@ def test_fake_implementations_agree_with_the_kernels(card, out_dtype):
         with FakeTensorMode() as mode:
             fake = wrapper(mode.from_tensor(x), cfg)
         assert (fake.shape, fake.dtype, fake.device) == (real.shape, real.dtype, real.device)
+
+
+@pytest.mark.parametrize("shape,kernel,stride,pad", [
+    ((2, 64, 6, 15, 14), (1, 3, 3), (1, 2, 2), (0, 0, 1, 1, 0, 1)),
+    ((2, 192, 6, 9, 9), (3, 3, 3), (1, 1, 1), (1, 1, 1, 1, 1, 1)),
+    ((2, 132, 7, 9, 8), (3, 3, 3), (2, 2, 2), (1, 1, 0, 1, 0, 1)),
+    ((2, 24, 6, 9, 8), (2, 2, 2), (2, 2, 2), (0, 0, 0, 0, 0, 0)),
+    ((1, 12, 5, 7, 7), (3, 3, 3), (1, 1, 1), (1, 1, 1, 1, 1, 1)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool3d_kernels_match_aten(card, shape, kernel, stride, pad, dtype):
+    """The max-pool kernels against the plain version: the forward's bits
+    (ties and a NaN included) and offsets exactly, the input gradient
+    within one ulp of aten's taken in fp32 and rounded once; one launch
+    each way, and a fake output laid out as the kernel's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from asltpu_torch.ops import pool3d_kernels as pk
+
+    gen = torch.Generator(card).manual_seed(8)
+    x = torch.randint(0, 5, shape, generator=gen, device=card).to(dtype)
+    x[0, :, 1, 1, 1] = float("nan")
+    x = x.contiguous(memory_format=torch.channels_last_3d).requires_grad_()
+    before = (pk.max_pool3d_same.launches, pk.max_pool3d_same_backward.launches)
+    out, off = torch.ops.asltpu_torch.max_pool3d_same.default(x, kernel, stride, pad)
+    want, want_off = pk.max_pool3d_plain(x.detach(), kernel, stride, pad)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), want.view(bits)) and torch.equal(off, want_off)
+    g = torch.randn(out.shape, generator=gen, device=card).to(dtype)
+    (got,) = torch.autograd.grad(out, x, g)
+    exact = pk.max_pool3d_backward_plain(g.float(), want_off, shape[2:], kernel, stride, pad)
+    assert (pk.max_pool3d_same.launches, pk.max_pool3d_same_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    # fp32 sums in another order: a rounding of the largest sum; bf16: one
+    # ulp of the larger of the two (both are fp32 sums rounded once), with
+    # fp32's rounding as the floor where a sum cancels to near 0.
+    err = (got.float() - exact.to(dtype).float()).abs()
+    floor = 1e-6 * float(exact.abs().max())
+    if dtype == torch.bfloat16:
+        m = torch.maximum(got.float().abs(), exact.abs())
+        tol = torch.exp2(torch.floor(torch.log2(m.clamp_min(1e-30))) - 7).clamp_min(floor)
+    else:
+        tol = torch.full_like(err, floor)
+    assert bool((err <= tol).all()), float((err / tol).max())
+    xd = x.detach()
+    with FakeTensorMode() as mode:
+        fake, _ = torch.ops.asltpu_torch.max_pool3d_same.default(
+            mode.from_tensor(xd), kernel, stride, pad)
+    assert (fake.shape, fake.dtype, fake.stride()) == (out.shape, out.dtype, out.stride())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool3d_kernels_refuse_what_no_width_fits(card, dtype):
+    """C = 3, and a view one value off alignment: the op raises on the card
+    and launches nothing (no fallback)."""
+    from asltpu_torch.ops import pool3d_kernels as pk
+
+    narrow = torch.zeros(1, 3, 5, 7, 7, dtype=dtype, device=card).contiguous(
+        memory_format=torch.channels_last_3d)
+    flat = torch.zeros(1 + 8 * 5 * 7 * 7, dtype=dtype, device=card)
+    unaligned = flat[1:].view(1, 5, 7, 7, 8).permute(0, 4, 1, 2, 3)
+    before = pk.max_pool3d_same.launches
+    for x in (narrow, unaligned):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            torch.ops.asltpu_torch.max_pool3d_same.default(x, [3, 3, 3], [1, 1, 1], [1] * 6)
+    assert pk.max_pool3d_same.launches == before

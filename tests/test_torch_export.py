@@ -145,8 +145,13 @@ def test_export_i3d_roundtrip(tmp_path):
                                "resize_short": 36, "crop": 32})
     export_model(m, str(tmp_path / "i"), batch_size=2)
     frames = _uint8(6, (2, 8, 40, 40, 3))
-    got = load_exported(str(tmp_path / "i")).predict_batch(frames=frames)
+    em = load_exported(str(tmp_path / "i"))
+    got = em.predict_batch(frames=frames)
     np.testing.assert_allclose(got, _live(m, frames), atol=1e-4)
+    # All 13 pools are the custom op, which the card runs as its kernel.
+    pools = [n for n in em.program.graph.nodes
+             if str(n.target) == "asltpu_torch.max_pool3d_same.default"]
+    assert len(pools) == 13 and em.meta["preprocess"] == "plain"
 
 
 def test_load_exported_rejects_non_artifact(tmp_path):
