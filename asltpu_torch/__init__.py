@@ -6,14 +6,16 @@ path:
 
   - :mod:`asltpu_torch.api`     — ``load_model``, ``load_clip``, ``predict``,
     ``stream_predict``.
-  - :mod:`asltpu_torch.config`  — the five configs, field for field.
+  - :mod:`asltpu_torch.config`  — the five configs, field for field, and
+    the port's own ``timesformer``.
   - :mod:`asltpu_torch.models`  — MobileNetV2 + GRU head (``mobilenet_gru``),
     ResNet-18 + transformer head (``resnet_transformer``), the landmark
     BiLSTM (``pose_bilstm``), I3D (``i3d``), the RGB + landmark
-    cross-attention fusion (``two_stream``).
+    cross-attention fusion (``two_stream``), TimeSformer-HR
+    (``timesformer``).
   - :mod:`asltpu_torch.ops`     — preprocess (plain PyTorch and the
     hand-written CUDA kernels of ``csrc/``), the GRU and LSTM layers, I3D's
-    stem conv in its plain and space-to-depth forms.
+    stem conv in its plain and space-to-depth forms, fused attention.
   - :mod:`asltpu_torch.data`    — host decode, WLASL clip records,
     landmarks, padding, prefetch to the card, synthetic fixtures.
   - :mod:`asltpu_torch.native`  — the native (C++, g++) batch decoders,
@@ -48,6 +50,7 @@ from asltpu_torch.config import (  # noqa: F401
     ResNet18TransformerConfig,
     I3DConfig,
     TwoStreamFusionConfig,
+    TimeSformerConfig,
     get_config,
     CONFIG_REGISTRY,
 )

@@ -1,12 +1,13 @@
 """Public API: ``load_model``, ``load_clip``, ``predict`` and
 ``stream_predict``. Counterpart of ``asltpu/api.py`` for the five configs:
 ``pose_bilstm``, ``mobilenet_gru``, ``resnet_transformer``, ``i3d`` and
-``two_stream``.
+``two_stream``; and the port's own sixth, ``timesformer`` (TimeSformer-HR).
 
 For the RGB models everything after host decode runs on the device:
 preprocess (a hand-written CUDA kernel on the card), then the per-frame
 backbone over the B·T frames (MobileNetV2 or ResNet-18) and the temporal
-head (GRU or transformer), or I3D's 3D network over the whole clip.
+head (GRU or transformer), or I3D's 3D network or TimeSformer's divided
+space–time attention over the whole clip.
 ``pose_bilstm`` takes landmarks [T, 543, 3] instead of frames; it
 normalises them and runs its BiLSTM on the device. ``two_stream`` takes
 both: frames through MobileNetV2, landmarks of the same T, and
@@ -42,6 +43,7 @@ from asltpu_torch.config import (
     PoseBiLSTMConfig,
     PreprocessConfig,
     ResNet18TransformerConfig,
+    TimeSformerConfig,
     TwoStreamFusionConfig,
     get_config,
 )
@@ -53,6 +55,7 @@ from asltpu_torch.models.bilstm import PoseBiLSTM
 from asltpu_torch.models.common import cast_for_compute, init_weights
 from asltpu_torch.models.fusion import TwoStreamFusion
 from asltpu_torch.models.i3d import I3D
+from asltpu_torch.models.timesformer import TimeSformer
 from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
 from asltpu_torch.ops.preprocess import preprocess_clip
 from asltpu_torch.utils import profiling
@@ -107,6 +110,19 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             landmark_dim=cfg.landmark_dim,
             dtype=cfg.compute_torch_dtype,
         )
+    if isinstance(cfg, TimeSformerConfig):
+        return TimeSformer(
+            num_classes=cfg.num_classes,
+            num_frames=cfg.num_frames,
+            img_size=cfg.preprocess.crop,
+            patch_size=cfg.patch_size,
+            embed_dim=cfg.embed_dim,
+            depth=cfg.depth,
+            num_heads=cfg.num_heads,
+            mlp_ratio=cfg.mlp_ratio,
+            drop_path_rate=cfg.drop_path_rate,
+            dtype=cfg.compute_torch_dtype,
+        )
     raise ValueError(f"no model for config {type(cfg).__name__}")
 
 
@@ -115,8 +131,9 @@ def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
     besides its norms: the GRU head of ``mobilenet_gru`` (the recurrence
     amplifies low-precision error); the classifiers that read a pooled
     output in fp32 (the transformer head's and the fusion model's ``fc``,
-    I3D's ``logits``); all of ``pose_bilstm``, as the JAX package computes
-    it."""
+    I3D's ``logits``, TimeSformer's ``head``); all of ``pose_bilstm``, as
+    the JAX package computes it. TimeSformer's LayerNorms stay fp32 as
+    every norm does."""
     if isinstance(module, PoseBiLSTM):
         return (module,)
     if isinstance(module, MobileNetV2GRU):
@@ -125,6 +142,8 @@ def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
         return (module.logits,)
     if isinstance(module, TwoStreamFusion):
         return (module.fc,)
+    if isinstance(module, TimeSformer):
+        return (module.head,)
     return (module.head.fc,)
 
 
@@ -214,9 +233,9 @@ def load_model(
     return Model(cfg=cfg, module=module, device=dev)
 
 
-# The families whose modules train: all five.
+# The families whose modules train: all six.
 TRAINABLE = (PoseBiLSTMConfig, MobileNetV2GRUConfig, ResNet18TransformerConfig, I3DConfig,
-             TwoStreamFusionConfig)
+             TwoStreamFusionConfig, TimeSformerConfig)
 
 
 def build_trainable(name: str, seed: int = 0,

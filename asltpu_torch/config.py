@@ -2,8 +2,9 @@
 
 A field-for-field copy of ``asltpu/config.py`` (the five configs,
 ``PreprocessConfig``, ``TrainConfig`` and ``get_config``), so a config built
-here compares equal, field by field, with the JAX package's. Two things
-differ:
+here compares equal, field by field, with the JAX package's, and one family
+of the port's own, ``timesformer`` (:class:`TimeSformerConfig`), which the
+JAX package does not have. Two things differ:
 
 - ``out_jnp_dtype``/``compute_jnp_dtype`` become
   ``out_torch_dtype``/``compute_torch_dtype``;
@@ -181,6 +182,26 @@ class TwoStreamFusionConfig(ModelConfig):
 
 
 @dataclasses.dataclass(frozen=True)
+class TimeSformerConfig(ModelConfig):
+    """TimeSformer-HR (Bertasius et al., ICML 2021): ViT-B/16 with divided
+    space-time attention over 16 frames of 448², fine-tuned on WLASL-2000.
+    The port's own family: the JAX package has no counterpart."""
+
+    name: str = "timesformer"
+    num_classes: int = 2000  # WLASL-2000
+    num_frames: int = 16
+    patch_size: int = 16
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    # Stochastic depth, linearly spaced over the blocks from 0 at block 0.
+    drop_path_rate: float = 0.1
+    preprocess: PreprocessConfig = PreprocessConfig(
+        num_frames=16, staging_size=(512, 512), resize_short=512, crop=448)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters for the I3D fine-tune path."""
 
@@ -210,6 +231,7 @@ CONFIG_REGISTRY = {
     "resnet_transformer": ResNet18TransformerConfig,
     "i3d": I3DConfig,
     "two_stream": TwoStreamFusionConfig,
+    "timesformer": TimeSformerConfig,
 }
 
 

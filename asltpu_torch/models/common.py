@@ -1,7 +1,8 @@
 """Shared building blocks: ``ConvBN``, seeded initialisation, the cast to
-the compute dtype, merging time into the batch, and the training semantics
+the compute dtype, merging time into the batch, the training semantics
 of the shared parts: dropout from an explicit generator and BatchNorm in
-training mode as flax computes it. Counterpart of
+training mode as flax computes it, and a span around a sub-layer's forward
+and backward (:func:`sublayer`). Counterpart of
 ``asltpu/models/common.py``.
 
 Every model takes ``train`` and a ``generator`` as arguments of
@@ -18,11 +19,13 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import TYPE_CHECKING, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from asltpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from asltpu_torch.dist.mesh import Mesh
@@ -194,6 +197,50 @@ def attention_dropout(weights: torch.Tensor, p: float, train: bool,
     return weights * (keep.to(weights.dtype) / _in_dtype(1.0 - p, weights.dtype))
 
 
+class _SpanEdge(torch.autograd.Function):
+    """The identity at an edge of a sub-layer. In the backward pass the
+    first of its outputs' edges to be reached opens the sub-layer's span,
+    and the last of its inputs' edges closes it: the gradient of an input
+    is whole only once every operation of the sub-layer that reads it has
+    run its backward."""
+
+    @staticmethod
+    def forward(ctx, x, state, opens):
+        ctx.state, ctx.opens = state, opens
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        state = ctx.state
+        if ctx.opens:
+            if state["span"] is None:
+                state["span"] = span(state["name"]).__enter__()
+                state["left"] = state["inputs"]
+        elif state["span"] is not None:
+            state["left"] -= 1
+            if state["left"] == 0:
+                opened, state["span"] = state["span"], None
+                opened.__exit__(None, None, None)
+        return grad, None, None
+
+
+def sublayer(name: str, fn: Callable[..., Tuple[torch.Tensor, ...]],
+             *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``fn(*inputs)`` (a tuple of tensors) inside the span ``name``
+    (:class:`~asltpu_torch.utils.profiling.span`), and, where a gradient is
+    taken, its backward inside a span of the same name on the thread that
+    runs it: from the first gradient to reach one of the outputs to the
+    last of the inputs' gradients."""
+    track = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+    with span(name):
+        if not track:
+            return fn(*inputs)
+        state = {"name": name, "span": None, "inputs": sum(x.requires_grad for x in inputs)}
+        inputs = tuple(_SpanEdge.apply(x, state, False) if x.requires_grad else x
+                       for x in inputs)
+        return tuple(_SpanEdge.apply(y, state, True) for y in fn(*inputs))
+
+
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``t`` in ``dtype``: an fp32 master cast inside the layer (the
     gradient reaches it), a weight already in ``dtype`` as it is (a
@@ -271,15 +318,21 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     packed q/k/v projection as ``nn.MultiheadAttention``'s (Xavier-uniform,
     zero bias), GRUs and LSTMs U(-1/√H, 1/√H), the transformer's CLS token
     and positions truncated-normal (std 0.02), the fusion model's positions
-    too."""
+    too, and TimeSformer as its reference initialises it
+    (:meth:`~asltpu_torch.models.timesformer.TimeSformer.reset_parameters`)."""
     # These modules import this one.
     from asltpu_torch.models.fusion import TwoStreamFusion
     from asltpu_torch.models.i3d import Logits
     from asltpu_torch.models.temporal import TransformerHead
+    from asltpu_torch.models.timesformer import TimeSformer
     from asltpu_torch.ops.recurrent import GRU
 
     with torch.no_grad():
+        # TimeSformer's parameters are drawn once, by its reset_parameters.
+        own = {s for t in module.modules() if isinstance(t, TimeSformer) for s in t.modules()}
         for m in module.modules():
+            if m in own:
+                continue
             if isinstance(m, (nn.Conv2d, nn.Conv3d)):
                 fan_out = m.out_channels * math.prod(m.kernel_size)
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
@@ -303,7 +356,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         # I3D's classifier is a 1×1×1 conv, drawn above as one; it is a dense
         # layer over 1024 features.
         for m in module.modules():
-            if isinstance(m, Logits):
+            if isinstance(m, (Logits, TimeSformer)):
                 m.reset_parameters(generator)
 
 

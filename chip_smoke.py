@@ -11,7 +11,8 @@ phase printing one JSON line:
    the fp32 comparisons are fp32.
 2. kernels — every kernel against its plain PyTorch version on the card, at
    the main path's shapes, at a ragged one and at a tail one (rgb crop 50,
-   yuv420 width 52: rows that are not 16-byte multiples), in bf16 and fp32;
+   yuv420 width 52: rows that are not 16-byte multiples), rgb also at
+   TimeSformer-HR's (8 clips of 16 × 512² to 448²), in bf16 and fp32;
    the main rgb shape must be bit-exact in bf16. Kernel and plain times by
    CUDA events around runs of back-to-back calls, beside the least time the
    card could take (``share_of_bound``), the first kernels' times on the
@@ -233,6 +234,17 @@ phase printing one JSON line:
    the kernels' launches a step (13 + 13; remat: 22 + 13). The kernels
    line takes its launches from the main paths: the i3d lane's predict,
    phase train's ``train()`` and eval, and the exported ``i3d/rgb``.
+21. timesformer (run after train) — TimeSformer-HR at its published
+   widths (ViT-B/16, 12 divided blocks, 16 frames of 448² from 512², 2000
+   classes, bf16 with fp32 norms) on its two main paths, at the batch of
+   the benchmark's ``timesformer_hr.finetune_b8``: ``load_model`` →
+   ``predict`` on 8 staged clips (finite logits; the same predict with the
+   plain preprocess within ``LANE_LOGIT_ATOL``), then ``build_trainable``
+   → ``make_train_step``, two steps on seeded batches (finite loss and
+   gradient norm). On each path the rgb kernel's launches (1), the fused
+   attention's calls (24: 12 blocks × temporal and spatial) and the plain
+   attention's (0) are set to 0 just before the run and read from it, with
+   its peak memory.
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
@@ -343,6 +355,9 @@ STEM_SHAPE, STEM_COUT, STEM_REPS = (4, 64, 224, 224, 3), 64, 10
 # bytes, exact av (a clip; a record with a signer box, whose crop may land
 # one source pixel off cv2's) and with FAST_ALL.
 AV_MAD, AV_BBOX_MAD, AV_FAST_MAD = 3.0, 6.0, 8.0
+# TimeSformer-HR at the batch of the benchmark's timesformer_hr.finetune_b8;
+# a forward calls the fused attention once per sub-layer: 12 blocks × 2.
+TSF_BATCH, TSF_ATTENTION_CALLS = 8, 24
 POSE_BATCH = 64  # the JAX bench's pose batch (asltpu/benchmark.py:1299)
 # fp32 logits, card vs CPU, full width at batch 64: 1.04e-7 with the LSTM
 # in fp32, 1.19e-4 with TF32 on inside it (NVIDIA H100 80GB HBM3, 700 W).
@@ -433,7 +448,7 @@ def _uint8(rng, shape, device):
 
 
 def phase_kernels():
-    from asltpu_torch.config import PreprocessConfig
+    from asltpu_torch.config import PreprocessConfig, get_config
     from asltpu_torch.ops import preprocess_kernels as k
     from asltpu_torch.ops.preprocess import preprocess_clip_interp
 
@@ -456,6 +471,8 @@ def phase_kernels():
         ("yuv420", "tail", _uint8(rng, (4, 16, 78, 52), dev),
          PreprocessConfig(staging_size=(52, 52), resize_short=52, crop=52,
                           staging_format="yuv420")),
+        ("rgb", "timesformer", _uint8(rng, (TSF_BATCH, 16, 512, 512, 3), dev),
+         get_config("timesformer").preprocess),
     ]
     wrap = {"rgb": (k.preprocess_rgb, k.preprocess_rgb_plain),
             "yuv420": (k.preprocess_yuv420, k.preprocess_yuv420_plain)}
@@ -2038,6 +2055,89 @@ def _train_family(name):
     return launches
 
 
+def phase_timesformer():
+    """TimeSformer-HR's predict and train step at full width (module
+    docstring, phase 21). Returns the rgb kernel's launches by path."""
+    from asltpu_torch import api
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import preprocess_kernels as k
+    from asltpu_torch.train.loop import create_train_state, make_train_step
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k.preprocess_rgb.launches = 0
+        att.fused_attention.calls = att.plain_attention.calls = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {"preprocess_rgb": k.preprocess_rgb.launches,
+               "fused_attention": att.fused_attention.calls,
+               "plain_attention": att.plain_attention.calls,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        return out, got
+
+    def check(path, got, runs):
+        want = {"preprocess_rgb": runs, "fused_attention": runs * TSF_ATTENTION_CALLS,
+                "plain_attention": 0}
+        if {key: got[key] for key in want} != want:
+            raise AssertionError(f"timesformer {path}: launches and calls {got}, want {want}")
+
+    model = api.load_model("timesformer", seed=SEED)
+    cfg = model.cfg
+    assert (cfg.num_classes, cfg.num_frames, cfg.patch_size, cfg.embed_dim, cfg.depth,
+            cfg.num_heads, cfg.mlp_ratio, cfg.compute_dtype) == (
+            2000, 16, 16, 768, 12, 12, 4, "bfloat16"), cfg
+    assert cfg.preprocess.crop == 448 and cfg.preprocess.staged_frame_shape == (512, 512, 3)
+    norms = assert_norms_fp32(model.module)
+    frames = np.random.default_rng(SEED + 16).integers(
+        0, 256, (TSF_BATCH, cfg.num_frames, *cfg.preprocess.staged_frame_shape), np.uint8)
+    (ids, logits), predicted = counted(lambda: api.predict(model, frames))
+    check("predict", predicted, 1)
+    assert logits.shape == (TSF_BATCH, cfg.num_classes) and np.isfinite(logits).all()
+    del model
+    plain = api.load_model("timesformer", seed=SEED, preprocess={"use_pallas": False})
+    _, plain_logits = api.predict(plain, frames)
+    del plain
+    err = float(np.abs(logits - plain_logits).max())
+    if err > LANE_LOGIT_ATOL:
+        raise AssertionError(f"timesformer predict: kernel and plain preprocess disagree "
+                             f"(max logit err {err})")
+    torch.cuda.empty_cache()
+
+    model = api.build_trainable("timesformer", seed=SEED)
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in model.module.parameters())
+    tcfg = TrainConfig(batch_size=TSF_BATCH, num_steps=1000, warmup_steps=100)
+    state = create_train_state(model.module, tcfg, SEED)
+    step = make_train_step(tcfg, model.cfg.preprocess)
+    shape = (TSF_BATCH, cfg.num_frames, *cfg.preprocess.staged_frame_shape)
+    stream = SeededBatches(shape, cfg.num_classes, torch.device("cuda"), seed=SEED + 17)
+    batches = [next(stream) for _ in range(2)]
+
+    def two_steps():
+        nonlocal state
+        out = []
+        for b, y in batches:
+            state, metrics = step(state, b, y)
+            out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        return out
+
+    steps, trained = counted(two_steps)
+    check("train", trained, 2)
+    if not all(np.isfinite(v) and v > 0 for pair in steps for v in pair):
+        raise AssertionError(f"timesformer train: loss and grad_norm {steps}")
+    del model, state, batches
+    torch.cuda.empty_cache()
+    emit({"phase": "timesformer", "input": list(frames.shape), "batch": TSF_BATCH,
+          "compute_dtype": cfg.compute_dtype, "param_dtype": "float32",
+          "norm_layers_fp32": norms, "predict": predicted,
+          "max_logit_err_vs_plain": err, "atol": LANE_LOGIT_ATOL,
+          "distinct_top1": len(set(ids.tolist())), "train": trained,
+          "loss_grad_norm": steps})
+    return {"timesformer/predict": predicted["preprocess_rgb"],
+            "timesformer/train": trained["preprocess_rgb"]}
+
+
 def phase_bench():
     """The port's bench in this process, over its cells, with a short
     stream and ``--trace``; every video cell's rgb or yuv420 kernel must have
@@ -3243,6 +3343,7 @@ def _run() -> int:
     fusion = _lane("two_stream", "two_stream", RGB_LANE,
                    PreprocessConfig().staged_frame_shape)
     train, pools_by_path = phase_train()
+    train.update(phase_timesformer())
     pools_by_path["i3d/predict"] = [i3d["max_pool3d_same"], i3d["max_pool3d_same_backward"]]
     rgb_by_path = {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
                    "resnet_transformer/rgb": resnet["preprocess_rgb"],

@@ -624,3 +624,86 @@ def test_pool3d_kernels_refuse_what_no_width_fits(card, dtype):
         with pytest.raises(ValueError, match="multiple of 4"):
             torch.ops.asltpu_torch.max_pool3d_same.default(x, [3, 3, 3], [1, 1, 1], [1] * 6)
     assert pk.max_pool3d_same.launches == before
+
+
+@pytest.mark.parametrize("length,n", [(785, 16), (16, 784)])
+def test_fused_attention_matches_the_plain_math(card, length, n):
+    """TimeSformer's two attentions, bf16 heads of 64 (12 heads; spatial: 16
+    sequences of 785 tokens, temporal: 784 of 16), q/k/v strided views of
+    one packed projection as the model makes them: the fused backend
+    against the plain math in fp32 on the same bf16 inputs, forward and the
+    three gradients. The fused kernels round the softmax weights to bf16
+    before the weighted sum and the result once (2^-8 relative each), so
+    each value lies within 2^-6 of the largest of its tensor; a wrong
+    layout or scale misses by the tensor's own size."""
+    from asltpu_torch.ops import attention as att
+
+    gen = torch.Generator(card).manual_seed(11)
+    qkv = torch.randn((n, length, 3, 12, 64), generator=gen, device=card).bfloat16()
+    q, k_, v = (qkv[:, :, i].transpose(1, 2).requires_grad_() for i in range(3))
+    before = att.fused_attention.calls
+    out = att.attention(q, k_, v)
+    assert att.fused_attention.calls == before + 1 and out.dtype == torch.bfloat16
+    grad = torch.randn(out.shape, generator=gen, device=card).bfloat16()
+    got = (out, *torch.autograd.grad(out, (q, k_, v), grad))
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k_, v))
+    want = att.plain_attention(q32, k32, v32)
+    want = (want, *torch.autograd.grad(want, (q32, k32, v32), grad.float()))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.float() - w).abs().max()) <= 2 ** -6 * float(w.abs().max())
+
+
+def test_fused_attention_raises_where_no_fused_backend_applies(card):
+    """float64 heads, which no fused backend takes: the call raises on the
+    card rather than running the math backend, and counts nothing."""
+    from asltpu_torch.ops import attention as att
+
+    q = torch.randn((2, 4, 33, 64), dtype=torch.float64, device=card)
+    before = att.fused_attention.calls
+    with pytest.raises(RuntimeError):
+        att.attention(q, q, q)
+    assert att.fused_attention.calls == before
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_rgb_kernel_matches_plain_at_timesformer_size(card, out_dtype):
+    """TimeSformer-HR's preprocess: 512² staged frames, short side 512,
+    centre crop 448 (two clips of 16 frames)."""
+    cfg = PreprocessConfig(num_frames=16, staging_size=(512, 512), resize_short=512,
+                           crop=448, out_dtype=out_dtype)
+    frames = _frames(12, (2, 16, 512, 512, 3), card)
+    before = k.preprocess_rgb.launches
+    got = k.preprocess_rgb(frames, cfg)
+    torch.cuda.synchronize()
+    assert k.preprocess_rgb.launches == before + 1
+    want = k.preprocess_rgb_plain(frames, cfg)
+    assert got.shape == want.shape == (2, 16, 448, 448, 3)
+    atol = F32_ATOL if out_dtype == "float32" else BF16_ATOL["rgb"]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_timesformer_on_the_card_trains_and_predicts(card):
+    """A small TimeSformer (2 blocks of d 64, 4 frames of 32², bf16) through
+    ``build_trainable`` → ``make_train_step`` and ``load_model`` →
+    ``predict``: every attention call of both takes the fused backend (4
+    forward calls a step, 4 a predict) and the loss and logits are
+    finite."""
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.ops import attention as att
+    from asltpu_torch.train import loop
+
+    kw = dict(num_classes=7, num_frames=4, embed_dim=64, depth=2, num_heads=4,
+              preprocess={"num_frames": 4, "staging_size": (40, 40), "resize_short": 40,
+                          "crop": 32})
+    frames = np.random.default_rng(13).integers(0, 256, (2, 4, 40, 40, 3), np.uint8)
+    model = api.build_trainable("timesformer", seed=3, device=card, **kw)
+    tcfg = TrainConfig(batch_size=2)
+    state = loop.create_train_state(model.module, tcfg, seed=3)
+    before = (att.fused_attention.calls, att.plain_attention.calls)
+    state, metrics = loop.make_train_step(tcfg, model.cfg.preprocess)(
+        state, frames, np.array([1, 2], np.int32))
+    assert bool(torch.isfinite(metrics["loss"]))
+    ids, logits = api.predict(api.load_model("timesformer", seed=3, **kw), frames)
+    assert np.isfinite(logits).all() and logits.shape == (2, 7)
+    assert (att.fused_attention.calls, att.plain_attention.calls) == (before[0] + 8, before[1])

@@ -155,8 +155,8 @@ def test_cpu_fused_backbone_leaves_mbconv_counter_at_zero():
 
 
 def test_unported_names_and_backends_say_so():
-    """Every config of the registry builds (``i3d`` and ``two_stream`` too,
-    at full width); an unknown name or backend raises."""
+    """Every config of the registry builds (``i3d``, ``two_stream`` and
+    TimeSformer-HR too, at full width); an unknown name or backend raises."""
     from asltpu_torch import api, native
     from asltpu_torch.config import CONFIG_REGISTRY, PreprocessConfig
     from asltpu_torch.data.decode import make_decode_pool
@@ -165,6 +165,9 @@ def test_unported_names_and_backends_say_so():
     assert built["i3d"].logits.conv3d.weight.shape == (2000, 1024, 1, 1, 1)
     assert built["two_stream"].fc.in_features == 512
     assert built["two_stream"].features.out_features == 1280
+    tsf = built["timesformer"]
+    assert tsf.pos_embed.shape == (1, 785, 768) and tsf.time_embed.shape == (1, 16, 768)
+    assert len(tsf.blocks) == 12 and tsf.head.weight.shape == (2000, 768)
     assert api.build_module(api.get_config("pose_bilstm")).fc.out_features == 100
     with pytest.raises(KeyError):
         api.get_config("c3d")
