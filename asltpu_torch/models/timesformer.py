@@ -26,8 +26,11 @@ order, t innermost, and the CLS token [B, 1, d] travels beside them: every
 sub-layer but spatial attention is per token. Temporal attention's
 sequences [(B h w), t, d] are then a view of the tokens; spatial
 attention's [(B t), 1 + h w, d] are one copy, which also puts each frame's
-copy of the CLS token in front. Attention runs on a fused backend on the
-card (:func:`asltpu_torch.ops.attention.attention`).
+copy of the CLS token in front. Temporal attention runs on the port's own
+kernel for short sequences
+(:func:`asltpu_torch.ops.short_attention_kernels.short_attention`), spatial
+attention on a fused backend on the card
+(:func:`asltpu_torch.ops.attention.attention`).
 
 Precision: the compute dtype is ``dtype`` (None: the patch conv's weight
 dtype); fp32 masters are cast inside each layer; every LayerNorm
@@ -56,6 +59,7 @@ from torch import nn
 from asltpu_torch.models.common import _in_dtype, batch_rand, cast, conv2d, sublayer
 from asltpu_torch.models.temporal import _layer_norm
 from asltpu_torch.ops.attention import attention
+from asltpu_torch.ops.short_attention_kernels import MAX_LEN, short_attention
 
 TIME_SPAN = "timesformer.time_attn"
 SPACE_SPAN = "timesformer.space_attn"
@@ -98,7 +102,11 @@ class PatchEmbed(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention with a packed, biased q/k/v projection
-    (``qkv``, rows q; k; v) and an output projection (``proj``)."""
+    (``qkv``, rows q; k; v) and an output projection (``proj``). A sequence
+    of at most :data:`MAX_LEN` tokens (the temporal sub-layer's) goes whole
+    to :func:`short_attention`, which reads the packed projection and
+    returns its gradient packed; a longer one (the spatial sub-layer's) to
+    :func:`attention` on q, k, v views."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -110,7 +118,10 @@ class Attention(nn.Module):
         """[N, L, d] → [N, L, d] in the dtype of ``x``."""
         n, length, d = x.shape
         h = self.num_heads
-        qkv = _linear(x, self.qkv).view(n, length, 3, h, d // h)
+        qkv = _linear(x, self.qkv)
+        if length <= MAX_LEN:
+            return _linear(short_attention(qkv, h), self.proj)
+        qkv = qkv.view(n, length, 3, h, d // h)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         out = attention(q, k, v).transpose(1, 2).reshape(n, length, d)
         return _linear(out, self.proj)

@@ -242,9 +242,23 @@ phase printing one JSON line:
    plain preprocess within ``LANE_LOGIT_ATOL``), then ``build_trainable``
    → ``make_train_step``, two steps on seeded batches (finite loss and
    gradient norm). On each path the rgb kernel's launches (1), the fused
-   attention's calls (24: 12 blocks × temporal and spatial) and the plain
-   attention's (0) are set to 0 just before the run and read from it, with
-   its peak memory.
+   attention's calls (12 a forward: the spatial sub-layers), the short-
+   sequence kernels' launches (12 forward a forward: the temporal
+   sub-layers; 12 backward a train step) and the plain attention's calls
+   (0) are set to 0 just before the run and read from it, with its peak
+   memory.
+22. short_attention (run after timesformer) — the short-sequence attention
+   kernels (``asltpu_torch/csrc/short_attention.cu``, the op
+   ``asltpu_torch::short_attention`` and its backward) at TimeSformer-HR's
+   temporal layer at batch 8 (6,272 sequences of 16 tokens, 12 heads of
+   64, bf16): the output and the gradient of ``qkv`` against the plain
+   version in fp32 on the same inputs (within 2^-6 of each tensor's
+   largest value: bf16 rounds P, dS and the results), two backward runs
+   bit for bit; forward and backward times by CUDA events in turns
+   (library, kernel, kernel, library) beside the bytes' bound, the plain
+   version's time, and as ``library_ms`` PyTorch's fused attention (cuDNN
+   first) on q, k, v views of the same projection with autograd's backward
+   to ``qkv``, the path the kernels replaced, timed only as a yardstick.
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
@@ -356,8 +370,12 @@ STEM_SHAPE, STEM_COUT, STEM_REPS = (4, 64, 224, 224, 3), 64, 10
 # one source pixel off cv2's) and with FAST_ALL.
 AV_MAD, AV_BBOX_MAD, AV_FAST_MAD = 3.0, 6.0, 8.0
 # TimeSformer-HR at the batch of the benchmark's timesformer_hr.finetune_b8;
-# a forward calls the fused attention once per sub-layer: 12 blocks × 2.
-TSF_BATCH, TSF_ATTENTION_CALLS = 8, 24
+# a forward of each of its 12 blocks calls the short-sequence kernel once
+# (temporal, 16 tokens) and the fused attention once (spatial, 785).
+TSF_BATCH, TSF_BLOCKS = 8, 12
+# Its temporal attention a layer: 8 · 784 sequences of 16 tokens, 12 heads
+# of 64 (phase short_attention).
+SHORT_SHAPE, SHORT_HEADS, SHORT_REPS = (TSF_BATCH * 784, 16, 3 * 768), 12, 10
 POSE_BATCH = 64  # the JAX bench's pose batch (asltpu/benchmark.py:1299)
 # fp32 logits, card vs CPU, full width at batch 64: 1.04e-7 with the LSTM
 # in fp32, 1.19e-4 with TF32 on inside it (NVIDIA H100 80GB HBM3, 700 W).
@@ -2062,6 +2080,7 @@ def phase_timesformer():
     from asltpu_torch.config import TrainConfig
     from asltpu_torch.ops import attention as att
     from asltpu_torch.ops import preprocess_kernels as k
+    from asltpu_torch.ops import short_attention_kernels as sa
     from asltpu_torch.train.loop import create_train_state, make_train_step
 
     def counted(fn):
@@ -2069,17 +2088,21 @@ def phase_timesformer():
         torch.cuda.reset_peak_memory_stats()
         k.preprocess_rgb.launches = 0
         att.fused_attention.calls = att.plain_attention.calls = 0
+        sa.short_attention.launches = sa.short_attention_backward.launches = 0
         out = fn()
         torch.cuda.synchronize()
         got = {"preprocess_rgb": k.preprocess_rgb.launches,
                "fused_attention": att.fused_attention.calls,
                "plain_attention": att.plain_attention.calls,
+               "short_attention": sa.short_attention.launches,
+               "short_attention_backward": sa.short_attention_backward.launches,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         return out, got
 
-    def check(path, got, runs):
-        want = {"preprocess_rgb": runs, "fused_attention": runs * TSF_ATTENTION_CALLS,
-                "plain_attention": 0}
+    def check(path, got, runs, backward):
+        want = {"preprocess_rgb": runs, "fused_attention": runs * TSF_BLOCKS,
+                "plain_attention": 0, "short_attention": runs * TSF_BLOCKS,
+                "short_attention_backward": runs * TSF_BLOCKS if backward else 0}
         if {key: got[key] for key in want} != want:
             raise AssertionError(f"timesformer {path}: launches and calls {got}, want {want}")
 
@@ -2093,7 +2116,7 @@ def phase_timesformer():
     frames = np.random.default_rng(SEED + 16).integers(
         0, 256, (TSF_BATCH, cfg.num_frames, *cfg.preprocess.staged_frame_shape), np.uint8)
     (ids, logits), predicted = counted(lambda: api.predict(model, frames))
-    check("predict", predicted, 1)
+    check("predict", predicted, 1, backward=False)
     assert logits.shape == (TSF_BATCH, cfg.num_classes) and np.isfinite(logits).all()
     del model
     plain = api.load_model("timesformer", seed=SEED, preprocess={"use_pallas": False})
@@ -2123,7 +2146,7 @@ def phase_timesformer():
         return out
 
     steps, trained = counted(two_steps)
-    check("train", trained, 2)
+    check("train", trained, 2, backward=True)
     if not all(np.isfinite(v) and v > 0 for pair in steps for v in pair):
         raise AssertionError(f"timesformer train: loss and grad_norm {steps}")
     del model, state, batches
@@ -2134,8 +2157,83 @@ def phase_timesformer():
           "max_logit_err_vs_plain": err, "atol": LANE_LOGIT_ATOL,
           "distinct_top1": len(set(ids.tolist())), "train": trained,
           "loss_grad_norm": steps})
-    return {"timesformer/predict": predicted["preprocess_rgb"],
-            "timesformer/train": trained["preprocess_rgb"]}
+    return ({"timesformer/predict": predicted["preprocess_rgb"],
+             "timesformer/train": trained["preprocess_rgb"]},
+            {path: [got["short_attention"], got["short_attention_backward"]]
+             for path, got in (("timesformer/predict", predicted),
+                               ("timesformer/train", trained))})
+
+
+def phase_short_attention():
+    """The short-sequence attention kernels at TimeSformer-HR's temporal
+    layer (module docstring, phase 22): checked against the plain version
+    and timed. Returns the summary."""
+    from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import short_attention_kernels as sa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(SEED + 50)
+    n, length, width = SHORT_SHAPE
+    h = SHORT_HEADS
+    qkv = torch.randn(SHORT_SHAPE, generator=gen, device=dev).bfloat16()
+    grad = torch.randn((n, length, width // 3), generator=gen, device=dev).bfloat16()
+    out = sa.short_attention(qkv, h)
+    grad_qkv = sa.short_attention_backward(grad, qkv, h)
+    again = sa.short_attention_backward(grad, qkv, h)
+    torch.cuda.synchronize()
+    q32 = qkv.float()
+    errs = {}
+    for key, got, want in (
+            ("out", out, sa.short_attention_plain(q32, h)),
+            ("grad_qkv", grad_qkv, sa.short_attention_backward_plain(grad.float(), q32, h))):
+        errs[key] = float((got.float() - want).abs().max()) / float(want.abs().max())
+    row = {"shape": list(SHORT_SHAPE), "heads": h, "dtype": "bfloat16",
+           "max_err_rel_to_max": errs, "tolerance": 2 ** -6,
+           "backward_bit_identical": bool(torch.equal(grad_qkv.view(torch.int16),
+                                                      again.view(torch.int16)))}
+    del q32, again
+    if not (max(errs.values()) <= 2 ** -6 and row["backward_bit_identical"]):
+        raise AssertionError(f"short_attention disagrees with its plain version: {row}")
+
+    def library_forward(x):
+        q, k_, v = (x.view(n, length, 3, h, 64)[:, :, i].transpose(1, 2) for i in range(3))
+        return att.fused_attention(q, k_, v).transpose(1, 2).reshape(n, length, width // 3)
+
+    leaf = qkv.detach().requires_grad_()
+    library_out = library_forward(leaf)
+
+    fns = {
+        "fwd": lambda: sa.short_attention(qkv, h),
+        "bwd": lambda: sa.short_attention_backward(grad, qkv, h),
+        "library_fwd": lambda: library_forward(qkv),
+        "library_bwd": lambda: torch.autograd.grad(library_out, leaf, grad, retain_graph=True),
+        "plain_fwd": lambda: sa.short_attention_plain(qkv, h),
+        "plain_bwd": lambda: sa.short_attention_backward_plain(grad, qkv, h),
+    }
+    ms = {}
+    for name in ("library_fwd", "fwd", "fwd", "library_fwd", "library_bwd", "bwd", "bwd",
+                 "library_bwd", "plain_fwd", "plain_bwd"):
+        ms.setdefault(name, []).append(time_ms(fns[name], SHORT_REPS))
+    del library_out, leaf
+    item = qkv.element_size()
+    fwd_bytes = (qkv.numel() + out.numel()) * item
+    bwd_bytes = (qkv.numel() + grad.numel() + grad_qkv.numel()) * item
+    row.update({
+        "ms_fwd": min(ms["fwd"]), "ms_bwd": min(ms["bwd"]),
+        "library_ms_fwd": min(ms["library_fwd"]), "library_ms_bwd": min(ms["library_bwd"]),
+        "plain_ms_fwd": ms["plain_fwd"][0], "plain_ms_bwd": ms["plain_bwd"][0],
+        "ms_runs": ms, "bytes_fwd": fwd_bytes, "bytes_bwd": bwd_bytes,
+        "bound_ms_fwd": fwd_bytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_ms_bwd": bwd_bytes / PEAK_BYTES_PER_S * 1e3,
+        "library": "fused_attention (cuDNN, flash, memory-efficient) on q, k, v views, "
+                   "autograd's backward to qkv"})
+    row["share_of_bound"] = ((row["bound_ms_fwd"] + row["bound_ms_bwd"])
+                             / (row["ms_fwd"] + row["ms_bwd"]))
+    del qkv, grad, out, grad_qkv
+    torch.cuda.empty_cache()
+    emit({"phase": "short_attention", **row,
+          "peaks": {"bytes_per_s": PEAK_BYTES_PER_S, "source": "H100 SXM data sheet"}})
+    return row
 
 
 def phase_bench():
@@ -3343,7 +3441,9 @@ def _run() -> int:
     fusion = _lane("two_stream", "two_stream", RGB_LANE,
                    PreprocessConfig().staged_frame_shape)
     train, pools_by_path = phase_train()
-    train.update(phase_timesformer())
+    tsf_rgb, short_by_path = phase_timesformer()
+    train.update(tsf_rgb)
+    short = phase_short_attention()
     pools_by_path["i3d/predict"] = [i3d["max_pool3d_same"], i3d["max_pool3d_same_backward"]]
     rgb_by_path = {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
                    "resnet_transformer/rgb": resnet["preprocess_rgb"],
@@ -3410,6 +3510,21 @@ def _run() -> int:
         "share_of_bound": pool3d["share_of_bound"],
         "per": "sums forward and backward over I3D's 13 pools at batch 48 "
                "(per pool: phase pool3d)",
+    })
+    kernels.append({
+        "name": "short_attention", "route": "cuda",
+        "source": "asltpu_torch/csrc/short_attention.cu", "replaces": None,
+        # [forward, backward] launches: phase timesformer's predict and two
+        # train steps.
+        "launches_by_path": short_by_path,
+        "max_err_rel_to_max": short["max_err_rel_to_max"],
+        "ms": short["ms_fwd"] + short["ms_bwd"],
+        "plain_ms": short["plain_ms_fwd"] + short["plain_ms_bwd"],
+        "bound_ms": short["bound_ms_fwd"] + short["bound_ms_bwd"], "bound_by": "bytes",
+        "library_ms": short["library_ms_fwd"] + short["library_ms_bwd"],
+        "share_of_bound": short["share_of_bound"],
+        "per": "one TimeSformer-HR temporal layer at batch 8, forward and backward "
+               "(phase short_attention)",
     })
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     # The serving timings (phase serve), each on a line of its own.

@@ -684,26 +684,103 @@ def test_rgb_kernel_matches_plain_at_timesformer_size(card, out_dtype):
 
 
 def test_timesformer_on_the_card_trains_and_predicts(card):
-    """A small TimeSformer (2 blocks of d 64, 4 frames of 32², bf16) through
-    ``build_trainable`` → ``make_train_step`` and ``load_model`` →
-    ``predict``: every attention call of both takes the fused backend (4
-    forward calls a step, 4 a predict) and the loss and logits are
-    finite."""
+    """A small TimeSformer (2 blocks of d 128 in 2 heads of 64, 4 frames of
+    96², bf16) through ``build_trainable`` → ``make_train_step`` and
+    ``load_model`` → ``predict``: each temporal attention (4 tokens) takes
+    the short-sequence kernel, forward and backward, and each spatial one
+    (37 tokens) the fused backend (2 fused calls and 2 + 2 launches a step,
+    2 and 2 + 0 a predict); the loss and logits are finite."""
     from asltpu_torch.config import TrainConfig
     from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import short_attention_kernels as sa
     from asltpu_torch.train import loop
 
-    kw = dict(num_classes=7, num_frames=4, embed_dim=64, depth=2, num_heads=4,
-              preprocess={"num_frames": 4, "staging_size": (40, 40), "resize_short": 40,
-                          "crop": 32})
-    frames = np.random.default_rng(13).integers(0, 256, (2, 4, 40, 40, 3), np.uint8)
+    kw = dict(num_classes=7, num_frames=4, embed_dim=128, depth=2, num_heads=2,
+              preprocess={"num_frames": 4, "staging_size": (112, 112), "resize_short": 112,
+                          "crop": 96})
+    frames = np.random.default_rng(13).integers(0, 256, (2, 4, 112, 112, 3), np.uint8)
     model = api.build_trainable("timesformer", seed=3, device=card, **kw)
     tcfg = TrainConfig(batch_size=2)
     state = loop.create_train_state(model.module, tcfg, seed=3)
-    before = (att.fused_attention.calls, att.plain_attention.calls)
+
+    def counts():
+        return (att.fused_attention.calls, att.plain_attention.calls,
+                sa.short_attention.launches, sa.short_attention_backward.launches)
+
+    before = counts()
     state, metrics = loop.make_train_step(tcfg, model.cfg.preprocess)(
         state, frames, np.array([1, 2], np.int32))
     assert bool(torch.isfinite(metrics["loss"]))
     ids, logits = api.predict(api.load_model("timesformer", seed=3, **kw), frames)
     assert np.isfinite(logits).all() and logits.shape == (2, 7)
-    assert (att.fused_attention.calls, att.plain_attention.calls) == (before[0] + 8, before[1])
+    assert tuple(a - b for a, b in zip(counts(), before)) == (4, 0, 4, 2)
+
+
+# TimeSformer-HR's temporal attention at batch 8: 8 · 784 sequences of 16
+# tokens, 12 heads of 64.
+SHORT_N, SHORT_HEADS = 6272, 12
+
+
+def _short_case(card, n, length, heads, seed):
+    gen = torch.Generator(card).manual_seed(seed)
+    qkv = torch.randn((n, length, 3 * heads * 64), generator=gen, device=card).bfloat16()
+    grad = torch.randn((n, length, heads * 64), generator=gen, device=card).bfloat16()
+    return qkv, grad
+
+
+@pytest.mark.parametrize("n,length", [(SHORT_N, 16), (333, 1), (517, 7), (129, 32),
+                                      (64, 17)])
+def test_short_attention_kernels_match_plain(card, n, length):
+    """The short-sequence kernels against their plain version in fp32 on the
+    same bf16 inputs, at the cell's per-layer shape and at lengths that mask
+    keys and rows (1, 7, 17, 32): the output and the gradient of ``qkv``.
+    The kernels round the softmax weights to bf16 before the weighted sum,
+    dS before dq and dk, and each result once (2^-8 relative each), so each
+    value lies within 2^-6 of its tensor's largest; a wrong layout, mask or
+    scale misses by the tensor's own size. One launch each way, inside the
+    span's range."""
+    from asltpu_torch.ops import short_attention_kernels as sa
+
+    qkv, grad = _short_case(card, n, length, SHORT_HEADS, 21)
+    qkv.requires_grad_()
+    before = (sa.short_attention.launches, sa.short_attention_backward.launches)
+    out = sa.short_attention(qkv, SHORT_HEADS)
+    (got,) = torch.autograd.grad(out, qkv, grad)
+    torch.cuda.synchronize()
+    assert (sa.short_attention.launches, sa.short_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    q32 = qkv.detach().float()
+    want = sa.short_attention_plain(q32, SHORT_HEADS)
+    want_grad = sa.short_attention_backward_plain(grad.float(), q32, SHORT_HEADS)
+    for g, w in ((out, want), (got, want_grad)):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16 and g.is_contiguous()
+        assert bool(torch.isfinite(g).all())
+        assert float((g.float() - w).abs().max()) <= 2 ** -6 * float(w.abs().max())
+
+
+def test_short_attention_backward_is_deterministic(card):
+    """No atomics: two backward launches on the same inputs give the same
+    bits."""
+    from asltpu_torch.ops import short_attention_kernels as sa
+
+    qkv, grad = _short_case(card, SHORT_N, 16, SHORT_HEADS, 22)
+    first = sa.short_attention_backward(grad, qkv, SHORT_HEADS)
+    second = sa.short_attention_backward(grad, qkv, SHORT_HEADS)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_short_attention_refuses_on_the_card(card):
+    """fp32, heads of 32, 33 tokens and a strided projection: the op raises
+    ``ValueError`` on the card and launches nothing (no fallback)."""
+    from asltpu_torch.ops import short_attention_kernels as sa
+
+    qkv, _ = _short_case(card, 8, 16, 2, 23)
+    cases = [(qkv.float(), 2), (qkv, 4), (_short_case(card, 8, 33, 2, 23)[0], 2),
+             (qkv.transpose(0, 1), 2)]
+    before = (sa.short_attention.launches, sa.short_attention_backward.launches)
+    for x, heads in cases:
+        with pytest.raises(ValueError):
+            sa.short_attention(x, heads)
+        with pytest.raises(ValueError):
+            sa.short_attention_backward(x[..., :x.shape[-1] // 3].contiguous(), x, heads)
+    assert (sa.short_attention.launches, sa.short_attention_backward.launches) == before

@@ -146,15 +146,32 @@ def test_predict_and_stream_predict(tmp_path):
 
 
 def test_the_cpu_takes_the_plain_path_and_the_counters_say_so():
-    """A forward on the CPU makes 2 attention calls a block, all plain; the
-    fused call itself (SDPA held to the fused backends, which have a CPU
-    kernel too) counts in ``fused_attention.calls`` and agrees with the
-    plain math to fp32 rounding."""
+    """A forward on the CPU makes 2 attention calls a block, all plain: at
+    this size both sub-layers' sequences (4 frames; 4 patches and the CLS
+    token) are short, so both go to the short-sequence op, whose CPU
+    implementation is its plain version and launches nothing; the fused
+    call itself (SDPA held to the fused backends, which have a CPU kernel
+    too) counts in ``fused_attention.calls`` and agrees with the plain math
+    to fp32 rounding."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from asltpu_torch.ops import short_attention_kernels as sa
+
+    class Ops(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Ops.calls += str(func) == "asltpu_torch.short_attention.default"
+            return func(*args, **(kwargs or {}))
+
     model = api.load_model("timesformer", device="cpu", **port_kwargs())
-    before = (att.fused_attention.calls, att.plain_attention.calls)
-    model.predict_fn()(clips(7))
-    assert (att.fused_attention.calls, att.plain_attention.calls) == (
-        before[0], before[1] + 2 * SIZES["depth"])
+    before = (att.fused_attention.calls, att.plain_attention.calls,
+              sa.short_attention.launches)
+    with Ops():
+        model.predict_fn()(clips(7))
+    assert (att.fused_attention.calls, att.plain_attention.calls,
+            sa.short_attention.launches) == before
+    assert Ops.calls == 2 * SIZES["depth"]
     gen = torch.Generator().manual_seed(8)
     q, k, v = (torch.randn((2, 4, 17, 16), generator=gen) for _ in range(3))
     got = att.fused_attention(q, k, v)
