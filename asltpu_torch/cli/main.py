@@ -313,7 +313,7 @@ def cmd_train(args) -> int:
     import numpy as np
 
     from asltpu_torch import api
-    from asltpu_torch import ckpt as _ckpt
+    from asltpu_torch import ckpt
     from asltpu_torch.config import TrainConfig, get_config
     from asltpu_torch.data.decode import decode_record, make_decode_pool
     from asltpu_torch.data.pad import pad_to_batch
@@ -362,7 +362,7 @@ def cmd_train(args) -> int:
 
         raw_iter = iter(make_train_loader(records, pp, tcfg.batch_size, seed=tcfg.seed,
                                           num_epochs=None, worker_count=args.loader_workers))
-        saved = _ckpt.load_data_state(args.ckpt_dir)
+        saved = ckpt.load_data_state(args.ckpt_dir)
         if saved is not None:
             raw_iter.set_state(saved)
             log.info("restored the loader's position from %s", args.ckpt_dir)

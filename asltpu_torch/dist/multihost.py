@@ -111,7 +111,7 @@ def assemble_global_batch(mesh: Mesh, local_batch: Any,
     all-reduce) join the ranks. So assembling is placing the rows. The
     leading axis is ``global_batch / data_size`` on every rank."""
     from asltpu_torch.data.prefetch import resolve_device
-    from asltpu_torch.train.loop import _on
+    from asltpu_torch.train.loop import to_device
 
     del mesh  # the rows are already this rank's
-    return _on(resolve_device(device), local_batch)
+    return to_device(resolve_device(device), local_batch)

@@ -1,9 +1,10 @@
 """Shared building blocks: ``ConvBN``, seeded initialisation, the cast to
-the compute dtype, merging time into the batch, the training semantics
-of the shared parts: dropout from an explicit generator and BatchNorm in
-training mode as flax computes it, and a span around a sub-layer's forward
-and backward (:func:`sublayer`). Counterpart of
-``asltpu/models/common.py``.
+the compute dtype, merging time into the batch, the layers that round
+where flax rounds (:func:`dense`, :func:`gelu`, :func:`layer_norm`,
+:func:`in_dtype`), the training semantics of the shared parts: dropout
+from an explicit generator and BatchNorm in training mode as flax
+computes it, and a span around a sub-layer's forward and backward
+(:func:`sublayer`). Counterpart of ``asltpu/models/common.py``.
 
 Every model takes ``train`` and a ``generator`` as arguments of
 ``forward``, as the JAX modules take ``train`` and a dropout key;
@@ -169,13 +170,13 @@ class Dropout(nn.Module):
         if not train or self.p == 0.0:
             return x
         keep = batch_rand(x.shape, generator, x.device) >= self.p
-        return torch.where(keep, x / _in_dtype(1.0 - self.p, x.dtype), torch.zeros_like(x))
+        return torch.where(keep, x / in_dtype(1.0 - self.p, x.dtype), torch.zeros_like(x))
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
 
 
-def _in_dtype(value: float, dtype: torch.dtype) -> torch.Tensor:
+def in_dtype(value: float, dtype: torch.dtype) -> torch.Tensor:
     """``value`` rounded to ``dtype`` (a 0-d CPU tensor, which an op on any
     device takes as a scalar of that dtype), as JAX rounds a Python float
     that meets an array."""
@@ -194,7 +195,7 @@ def attention_dropout(weights: torch.Tensor, p: float, train: bool,
         return weights
     q, k = weights.shape[-2:]
     keep = torch.rand((1, 1, q, k), generator=generator, device=weights.device) >= p
-    return weights * (keep.to(weights.dtype) / _in_dtype(1.0 - p, weights.dtype))
+    return weights * (keep.to(weights.dtype) / in_dtype(1.0 - p, weights.dtype))
 
 
 class _SpanEdge(torch.autograd.Function):
@@ -246,6 +247,27 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     gradient reaches it), a weight already in ``dtype`` as it is (a
     ``.to`` that changes nothing still costs a dispatch)."""
     return t if t.dtype == dtype else t.to(dtype)
+
+
+def dense(x: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
+    """flax ``Dense`` in the input's dtype: the weight and bias cast to it,
+    the product rounds, then the bias is added and rounds again."""
+    return torch.matmul(x, cast(linear.weight, x.dtype).t()) + cast(linear.bias, x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU as ``jax.nn.gelu(approximate=False)`` computes it:
+    0.5·x·erfc(−x·√½), with √½ rounded to the input's dtype and each
+    operation rounding to it."""
+    return 0.5 * x * torch.erfc(-x * torch.tensor(math.sqrt(0.5), dtype=x.dtype))
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax ``LayerNorm`` with fp32 parameters: statistics and the
+    normalisation in the parameters' dtype (fp32), one rounding to the
+    input's dtype."""
+    return cast(F.layer_norm(cast(x, ln.weight.dtype), ln.normalized_shape, ln.weight,
+                             ln.bias, ln.eps), x.dtype)
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

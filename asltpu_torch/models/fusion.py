@@ -12,7 +12,7 @@ Names are the ones ``asltpu.ckpt.import_two_stream`` reads: ``features.*``
 (torchvision's MobileNetV2), ``rgb_proj``, ``kp_proj``, ``pos``, ``fc``,
 ``fusion.{i}.{a_from_b,b_from_a}_{lnq,lnkv,attn}`` and
 ``fusion.{i}.{a,b}_mlp_{ln,fc1,fc2}``. Every op rounds where flax's does
-(the helpers of :mod:`asltpu_torch.models.temporal`): the model computes
+(the helpers of :mod:`asltpu_torch.models.common`): the model computes
 in ``dtype`` (None: the dtype of its weights; bf16 under the config's
 default) with fp32 LayerNorms, BatchNorms and ``fc``. It trains as the JAX
 model does (``forward(clip, landmarks, train=True, generator=g)``):
@@ -31,9 +31,9 @@ from torch import nn
 
 from asltpu_torch.config import LANDMARK_DIM, NUM_LANDMARKS
 from asltpu_torch.models.bilstm import normalize_landmarks
-from asltpu_torch.models.common import Dropout, cast, per_frame
+from asltpu_torch.models.common import Dropout, cast, dense, gelu, layer_norm, per_frame
 from asltpu_torch.models.mobilenetv2 import MobileNetV2
-from asltpu_torch.models.temporal import _dense, _gelu, _layer_norm, attention
+from asltpu_torch.models.temporal import attention
 
 
 class CrossAttentionBlock(nn.Module):
@@ -59,16 +59,16 @@ class CrossAttentionBlock(nn.Module):
 
     def _xattn(self, q_in: torch.Tensor, kv_in: torch.Tensor, name: str, train: bool,
                generator: Optional[torch.Generator]) -> torch.Tensor:
-        q = _layer_norm(q_in, getattr(self, f"{name}_lnq"))
-        kv = _layer_norm(kv_in, getattr(self, f"{name}_lnkv"))
+        q = layer_norm(q_in, getattr(self, f"{name}_lnq"))
+        kv = layer_norm(kv_in, getattr(self, f"{name}_lnkv"))
         y = attention(getattr(self, f"{name}_attn"), q, kv, train, generator)
         return q_in + self.dropout(y, train, generator)
 
     def _mlp(self, x: torch.Tensor, name: str, train: bool,
              generator: Optional[torch.Generator]) -> torch.Tensor:
-        y = _layer_norm(x, getattr(self, f"{name}_ln"))
-        y = _dense(_gelu(_dense(y, getattr(self, f"{name}_fc1"))),
-                   getattr(self, f"{name}_fc2"))
+        y = layer_norm(x, getattr(self, f"{name}_ln"))
+        y = dense(gelu(dense(y, getattr(self, f"{name}_fc1"))),
+                  getattr(self, f"{name}_fc2"))
         return x + self.dropout(y, train, generator)
 
     def forward(self, a: torch.Tensor, b: torch.Tensor, train: bool = False,
@@ -125,9 +125,9 @@ class TwoStreamFusion(nn.Module):
         logits [B, num_classes] fp32."""
         dtype = self._dtype()
         b, t = rgb.shape[:2]
-        rgb = _dense(cast(rgb, dtype), self.rgb_proj)
-        kp = _dense(normalize_landmarks(landmarks).reshape(b, t, -1).to(dtype),
-                    self.kp_proj)
+        rgb = dense(cast(rgb, dtype), self.rgb_proj)
+        kp = dense(normalize_landmarks(landmarks).reshape(b, t, -1).to(dtype),
+                   self.kp_proj)
         pos = cast(self.pos, dtype)
         rgb, kp = rgb + pos, kp + pos
         for block in self.fusion:

@@ -13,11 +13,11 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from asltpu_torch.dist.tp import copy_to_model_parallel, reduce_from_model_parallel, tp_mesh
-from asltpu_torch.models.common import Dropout, attention_dropout, cast
+from asltpu_torch.models.common import (Dropout, attention_dropout, cast, dense, gelu,
+                                         layer_norm)
 from asltpu_torch.ops.recurrent import GRU
 
 
@@ -44,19 +44,6 @@ class GRUHead(nn.Module):
         return self.fc(self.dropout(h_last[-1], train, generator))
 
 
-def _dense(x: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
-    """flax ``Dense`` in the input's dtype: the weight and bias cast to it,
-    the product rounds, then the bias is added and rounds again."""
-    return torch.matmul(x, cast(linear.weight, x.dtype).t()) + cast(linear.bias, x.dtype)
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU as ``jax.nn.gelu(approximate=False)`` computes it:
-    0.5·x·erfc(−x·√½), with √½ rounded to the input's dtype and each
-    operation rounding to it."""
-    return 0.5 * x * torch.erfc(-x * torch.tensor(math.sqrt(0.5), dtype=x.dtype))
-
-
 def _softmax(s: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis, each operation rounding to the
     input's dtype: exp(s − max), then divided by its sum. The max takes no
@@ -65,21 +52,14 @@ def _softmax(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """flax ``LayerNorm`` with fp32 parameters: statistics and the
-    normalisation in the parameters' dtype (fp32), one rounding to the
-    input's dtype."""
-    return cast(F.layer_norm(cast(x, ln.weight.dtype), ln.normalized_shape, ln.weight,
-                             ln.bias, ln.eps), x.dtype)
-
-
 def _dense_reduced(x: torch.Tensor, linear: nn.Linear, mesh) -> torch.Tensor:
-    """:func:`_dense` of a layer whose input columns are sharded over the
-    model axis of ``mesh`` where it is not None (attention's ``out_proj``,
-    an encoder block's ``mlp2``): each rank's partial product is summed
-    over the model group before the whole bias is added, once."""
+    """:func:`~asltpu_torch.models.common.dense` of a layer whose input
+    columns are sharded over the model axis of ``mesh`` where it is not
+    None (attention's ``out_proj``, an encoder block's ``mlp2``): each
+    rank's partial product is summed over the model group before the
+    whole bias is added, once."""
     if mesh is None:
-        return _dense(x, linear)
+        return dense(x, linear)
     y = reduce_from_model_parallel(torch.matmul(x, cast(linear.weight, x.dtype).t()), mesh)
     return y + cast(linear.bias, x.dtype)
 
@@ -144,14 +124,14 @@ class EncoderBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """In the dtype of ``x``; dropout on the attention weights, after
         attention and after the MLP, as flax's block."""
-        y = _layer_norm(x, self.ln1)
+        y = layer_norm(x, self.ln1)
         y = attention(self.attn, y, y, train, generator)
         x = x + self.dropout(y, train, generator)
-        y = _layer_norm(x, self.ln2)
+        y = layer_norm(x, self.ln2)
         mesh = tp_mesh(self.mlp1)
         if mesh is not None:
             y = copy_to_model_parallel(y, mesh)
-        y = _gelu(_dense(y, self.mlp1))
+        y = gelu(dense(y, self.mlp1))
         return x + self.dropout(_dense_reduced(y, self.mlp2, mesh), train, generator)
 
 
@@ -198,9 +178,9 @@ class TransformerHead(nn.Module):
         dtype = self.dtype or self.pos.dtype
         x = cast(feats, dtype)
         if self.in_proj is not None:
-            x = _dense(x, self.in_proj)
+            x = dense(x, self.in_proj)
         cls = cast(self.cls, dtype).expand(x.shape[0], 1, -1)
         x = self.dropout(torch.cat([cls, x], dim=1) + cast(self.pos, dtype), train, generator)
         for layer in self.layers:
             x = layer(x, train, generator)
-        return self.fc(cast(_layer_norm(x, self.final_ln)[:, 0], self.fc.weight.dtype))
+        return self.fc(cast(layer_norm(x, self.final_ln)[:, 0], self.fc.weight.dtype))

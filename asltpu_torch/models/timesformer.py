@@ -26,11 +26,8 @@ order, t innermost, and the CLS token [B, 1, d] travels beside them: every
 sub-layer but spatial attention is per token. Temporal attention's
 sequences [(B h w), t, d] are then a view of the tokens; spatial
 attention's [(B t), 1 + h w, d] are one copy, which also puts each frame's
-copy of the CLS token in front. Temporal attention runs on the port's own
-kernel for short sequences
-(:func:`asltpu_torch.ops.short_attention_kernels.short_attention`), spatial
-attention on a fused backend on the card
-(:func:`asltpu_torch.ops.attention.attention`).
+copy of the CLS token in front. Both hand their packed q/k/v projection to
+:func:`asltpu_torch.ops.attention.attention`, which chooses the kernel.
 
 Precision: the compute dtype is ``dtype`` (None: the patch conv's weight
 dtype); fp32 masters are cast inside each layer; every LayerNorm
@@ -56,10 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from asltpu_torch.models.common import _in_dtype, batch_rand, cast, conv2d, sublayer
-from asltpu_torch.models.temporal import _layer_norm
+from asltpu_torch.models.common import batch_rand, cast, conv2d, in_dtype, layer_norm, sublayer
 from asltpu_torch.ops.attention import attention
-from asltpu_torch.ops.short_attention_kernels import MAX_LEN, short_attention
 
 TIME_SPAN = "timesformer.time_attn"
 SPACE_SPAN = "timesformer.space_attn"
@@ -69,7 +64,7 @@ LN_EPS = 1e-6
 def _linear(x: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
     """``linear`` in the dtype of ``x``, its weight and bias cast to it: one
     product with the bias added in its epilogue (the reference's
-    ``nn.Linear``; ``temporal._dense`` rounds the product and the sum apart,
+    ``nn.Linear``; ``common.dense`` rounds the product and the sum apart,
     as flax does)."""
     return F.linear(x, cast(linear.weight, x.dtype), cast(linear.bias, x.dtype))
 
@@ -91,7 +86,7 @@ def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor], p: float) -> torch.
     if keep is None:
         return x
     keep = keep.view(-1, *([1] * (x.dim() - 1)))
-    return torch.where(keep, x / _in_dtype(1.0 - p, x.dtype), 0.0)
+    return torch.where(keep, x / in_dtype(1.0 - p, x.dtype), 0.0)
 
 
 class PatchEmbed(nn.Module):
@@ -102,11 +97,8 @@ class PatchEmbed(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention with a packed, biased q/k/v projection
-    (``qkv``, rows q; k; v) and an output projection (``proj``). A sequence
-    of at most :data:`MAX_LEN` tokens (the temporal sub-layer's) goes whole
-    to :func:`short_attention`, which reads the packed projection and
-    returns its gradient packed; a longer one (the spatial sub-layer's) to
-    :func:`attention` on q, k, v views."""
+    (``qkv``, rows q; k; v) and an output projection (``proj``); the
+    packed projection goes whole to :func:`attention`."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -116,15 +108,7 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[N, L, d] → [N, L, d] in the dtype of ``x``."""
-        n, length, d = x.shape
-        h = self.num_heads
-        qkv = _linear(x, self.qkv)
-        if length <= MAX_LEN:
-            return _linear(short_attention(qkv, h), self.proj)
-        qkv = qkv.view(n, length, 3, h, d // h)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = attention(q, k, v).transpose(1, 2).reshape(n, length, d)
-        return _linear(out, self.proj)
+        return _linear(attention(_linear(x, self.qkv), self.num_heads), self.proj)
 
 
 class Mlp(nn.Module):
@@ -158,7 +142,7 @@ class Block(nn.Module):
         """x + temporal_fc(drop_path(temporal_attn(temporal_norm1(x)))),
         each patch position attending over its T frames."""
         b, n, d = x.shape
-        y = _layer_norm(x, self.temporal_norm1).view(b * n // t, t, d)
+        y = layer_norm(x, self.temporal_norm1).view(b * n // t, t, d)
         y = self.temporal_attn(y)
         y = drop_path(y, keep_mask(y.shape[0], self.drop_path, train, generator, x.device),
                       self.drop_path)
@@ -173,8 +157,8 @@ class Block(nn.Module):
         added to the CLS token."""
         b, n, d = x.shape
         hw = n // t
-        y = torch.cat([_layer_norm(cls, self.norm1).view(b, 1, 1, d).expand(b, t, 1, d),
-                       _layer_norm(x, self.norm1).view(b, hw, t, d).transpose(1, 2)], dim=2)
+        y = torch.cat([layer_norm(cls, self.norm1).view(b, 1, 1, d).expand(b, t, 1, d),
+                       layer_norm(x, self.norm1).view(b, hw, t, d).transpose(1, 2)], dim=2)
         y = self.attn(y.view(b * t, hw + 1, d))
         y = drop_path(y, keep_mask(b * t, self.drop_path, train, generator, x.device),
                       self.drop_path).view(b, t, hw + 1, d)
@@ -191,7 +175,7 @@ class Block(nn.Module):
         # The MLP is per token: the CLS token and the patches each take it,
         # under one stochastic-depth draw a clip.
         keep = keep_mask(x.shape[0], self.drop_path, train, generator, x.device)
-        cls, x = (z + drop_path(self.mlp(_layer_norm(z, self.norm2)), keep, self.drop_path)
+        cls, x = (z + drop_path(self.mlp(layer_norm(z, self.norm2)), keep, self.drop_path)
                   for z in (cls, x))
         return cls, x
 

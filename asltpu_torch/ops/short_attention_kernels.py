@@ -25,7 +25,9 @@ version, in the order of operations of
 and :func:`short_attention_backward_plain` (the softmax's gradient written
 out, with δ = rowsum(P ∘ dP)). For a CUDA tensor it launches its kernel or
 raises ``ValueError`` before any launch: bf16, heads of :data:`HEAD_SIZE`,
-1 ≤ L ≤ :data:`MAX_LEN`, contiguous and 16-byte aligned; no fallback. Each
+1 ≤ L ≤ :data:`MAX_LEN` (:func:`kernel_takes`, which this module alone
+states), contiguous and 16-byte aligned; no fallback. Which sequences go
+to the op is decided in :func:`asltpu_torch.ops.attention.attention`. Each
 launch adds one to ``short_attention.launches`` or
 ``short_attention_backward.launches``; each call, from its checks to its
 launch, runs inside the span ``attention.short``
@@ -43,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -112,16 +114,31 @@ def short_attention_backward_plain(grad_out: torch.Tensor, qkv: torch.Tensor,
     return torch.stack((dq, dk, dv), dim=2).permute(0, 3, 2, 1, 4).reshape(n, length, 3 * d)
 
 
+def _refusal(dtype: torch.dtype, head_dim: int, length: int) -> Optional[str]:
+    """Why the kernels do not take sequences of ``length`` tokens in heads
+    of ``head_dim`` in ``dtype``; None where they do."""
+    if dtype != torch.bfloat16:
+        return f"the kernels take bfloat16, got {dtype}"
+    if head_dim != HEAD_SIZE:
+        return f"the kernels take heads of {HEAD_SIZE}, got heads of {head_dim}"
+    if not 1 <= length <= MAX_LEN:
+        return f"the kernels take 1 to {MAX_LEN} tokens a sequence, got {length}"
+    return None
+
+
+def kernel_takes(dtype: torch.dtype, head_dim: int, length: int) -> bool:
+    """Whether the kernels take sequences of ``length`` tokens in heads of
+    ``head_dim`` in ``dtype``: bf16, heads of :data:`HEAD_SIZE`, 1 to
+    :data:`MAX_LEN` tokens. A packed projection that ``F.linear`` wrote
+    also meets the layout the launch checks."""
+    return _refusal(dtype, head_dim, length) is None
+
+
 def _check_cuda(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int]:
     n, length, d = _geometry(qkv, heads)
-    if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernels take bfloat16, got {qkv.dtype}")
-    if d != heads * HEAD_SIZE:
-        raise ValueError(f"{name}: the kernels take heads of {HEAD_SIZE}, got {heads} heads "
-                         f"of {d / heads:g}")
-    if not 1 <= length <= MAX_LEN:
-        raise ValueError(f"{name}: the kernels take 1 to {MAX_LEN} tokens a sequence, "
-                         f"got {length}")
+    why = _refusal(qkv.dtype, d // heads, length)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{name}: expected a contiguous qkv on a 16-byte boundary, got "
                          f"strides {qkv.stride()} at {qkv.data_ptr() % 16} bytes past one")

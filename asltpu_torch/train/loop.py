@@ -266,11 +266,11 @@ def make_step_fn(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] = No
     return step_fn
 
 
-def _on(device: torch.device, x) -> Batch:
+def to_device(device: torch.device, x) -> Batch:
     """A host array or a tensor (or a tuple of them) → a tensor (tuple) on
     ``device``."""
     if isinstance(x, (tuple, list)):
-        return tuple(_on(device, a) for a in x)
+        return tuple(to_device(device, a) for a in x)
     t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
     return t.to(device, non_blocking=True)
 
@@ -287,7 +287,7 @@ def make_train_step(train_cfg: TrainConfig, pp_cfg: Optional[PreprocessConfig] =
         dev = state.device
         if mesh is not None:
             batch_in, labels = shard_batch(mesh, batch_in), shard_batch(mesh, labels)
-        return step_fn(state, _on(dev, batch_in), _on(dev, labels))
+        return step_fn(state, to_device(dev, batch_in), to_device(dev, labels))
 
     return train_step
 
@@ -304,7 +304,7 @@ def make_eval_step(pp_cfg: Optional[PreprocessConfig] = None, mesh: Optional[Mes
         dev = state.device
         if mesh is not None:
             batch_in, labels = shard_batch(mesh, batch_in), shard_batch(mesh, labels)
-        (batch_in, extras), labels = _split(_on(dev, batch_in)), _on(dev, labels).long()
+        (batch_in, extras), labels = _split(to_device(dev, batch_in)), to_device(dev, labels).long()
         with torch.no_grad():
             clip = preprocess_clip(batch_in, pp_cfg) if pp_cfg is not None else batch_in
             logits = state.module(clip, *extras, train=False)
@@ -357,7 +357,7 @@ def train(
     checkpoint. Rank 0 alone writes checkpoints and calls
     ``metric_writer``.
     """
-    from asltpu_torch import ckpt as _ckpt
+    from asltpu_torch import ckpt
 
     if state is None:
         if mesh is None and process_count() > 1:
@@ -366,7 +366,7 @@ def train(
             replicate(module, mesh)
             tp_shard_module(module, mesh)
         state = create_train_state(module, train_cfg, train_cfg.seed, mesh=mesh)
-        state = _ckpt.try_restore_train_state(train_cfg.ckpt_dir, state)
+        state = ckpt.try_restore_train_state(train_cfg.ckpt_dir, state)
     elif state.module is not module:
         raise ValueError("state holds another module than the one given")
     elif mesh is None:
@@ -388,7 +388,7 @@ def train(
         metrics = {"eval_top1": top1 / max(n, 1), "eval_top5": top5 / max(n, 1),
                    "eval_clips": float(n)}
         if train_cfg.keep_best and train_cfg.ckpt_dir:
-            _ckpt.save_best_state(train_cfg.ckpt_dir, state, metrics["eval_top1"])
+            ckpt.save_best_state(train_cfg.ckpt_dir, state, metrics["eval_top1"])
         if metric_writer:
             metric_writer(step, metrics)
         return metrics
@@ -417,8 +417,8 @@ def train(
                 # i + 1 batches consumed since this call began.
                 data_state = (resumable_iter.state_for(i + 1)
                               if resumable_iter is not None else None)
-                _ckpt.save_train_state(train_cfg.ckpt_dir, state, keep=train_cfg.ckpt_keep,
-                                       data_state=data_state)
+                ckpt.save_train_state(train_cfg.ckpt_dir, state, keep=train_cfg.ckpt_keep,
+                                      data_state=data_state)
     finally:
         # An early exit must stop a Prefetcher's thread, or it stays blocked
         # holding host and device batches for the life of the process.

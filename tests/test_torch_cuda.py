@@ -642,7 +642,7 @@ def test_fused_attention_matches_the_plain_math(card, length, n):
     qkv = torch.randn((n, length, 3, 12, 64), generator=gen, device=card).bfloat16()
     q, k_, v = (qkv[:, :, i].transpose(1, 2).requires_grad_() for i in range(3))
     before = att.fused_attention.calls
-    out = att.attention(q, k_, v)
+    out = att.fused_attention(q, k_, v)
     assert att.fused_attention.calls == before + 1 and out.dtype == torch.bfloat16
     grad = torch.randn(out.shape, generator=gen, device=card).bfloat16()
     got = (out, *torch.autograd.grad(out, (q, k_, v), grad))
@@ -662,7 +662,7 @@ def test_fused_attention_raises_where_no_fused_backend_applies(card):
     q = torch.randn((2, 4, 33, 64), dtype=torch.float64, device=card)
     before = att.fused_attention.calls
     with pytest.raises(RuntimeError):
-        att.attention(q, q, q)
+        att.fused_attention(q, q, q)
     assert att.fused_attention.calls == before
 
 
@@ -683,21 +683,21 @@ def test_rgb_kernel_matches_plain_at_timesformer_size(card, out_dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
-def test_timesformer_on_the_card_trains_and_predicts(card):
-    """A small TimeSformer (2 blocks of d 128 in 2 heads of 64, 4 frames of
-    96², bf16) through ``build_trainable`` → ``make_train_step`` and
-    ``load_model`` → ``predict``: each temporal attention (4 tokens) takes
-    the short-sequence kernel, forward and backward, and each spatial one
-    (37 tokens) the fused backend (2 fused calls and 2 + 2 launches a step,
-    2 and 2 + 0 a predict); the loss and logits are finite."""
+def _timesformer_step_and_predict(card, **overrides):
+    """A small TimeSformer (2 blocks of d 128, 4 frames of 96²) through
+    ``build_trainable`` → ``make_train_step`` and ``load_model`` →
+    ``predict``, with the config's ``overrides``: asserts the loss and
+    logits finite and returns what the step and the predict added to
+    (``fused_attention.calls``, ``plain_attention.calls``,
+    ``short_attention.launches``, ``short_attention_backward.launches``)."""
     from asltpu_torch.config import TrainConfig
     from asltpu_torch.ops import attention as att
     from asltpu_torch.ops import short_attention_kernels as sa
     from asltpu_torch.train import loop
 
-    kw = dict(num_classes=7, num_frames=4, embed_dim=128, depth=2, num_heads=2,
+    kw = dict(num_classes=7, num_frames=4, embed_dim=128, depth=2,
               preprocess={"num_frames": 4, "staging_size": (112, 112), "resize_short": 112,
-                          "crop": 96})
+                          "crop": 96}, **overrides)
     frames = np.random.default_rng(13).integers(0, 256, (2, 4, 112, 112, 3), np.uint8)
     model = api.build_trainable("timesformer", seed=3, device=card, **kw)
     tcfg = TrainConfig(batch_size=2)
@@ -713,7 +713,28 @@ def test_timesformer_on_the_card_trains_and_predicts(card):
     assert bool(torch.isfinite(metrics["loss"]))
     ids, logits = api.predict(api.load_model("timesformer", seed=3, **kw), frames)
     assert np.isfinite(logits).all() and logits.shape == (2, 7)
-    assert tuple(a - b for a, b in zip(counts(), before)) == (4, 0, 4, 2)
+    return tuple(a - b for a, b in zip(counts(), before))
+
+
+def test_timesformer_on_the_card_trains_and_predicts(card):
+    """The small TimeSformer in 2 heads of 64, bf16: each temporal attention
+    (4 tokens) takes the short-sequence kernel, forward and backward, and
+    each spatial one (37 tokens) the fused backend (2 fused calls and 2 + 2
+    launches a step, 2 and 2 + 0 a predict); the loss and logits are
+    finite."""
+    assert _timesformer_step_and_predict(card, num_heads=2) == (4, 0, 4, 2)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"num_heads": 2, "compute_dtype": "float32"},
+    {"num_heads": 4},
+], ids=["fp32_heads_of_64", "bf16_heads_of_32"])
+def test_timesformer_runs_on_the_card_where_the_short_kernel_does_not(card, overrides):
+    """fp32, and bf16 heads of 32, which the short-sequence kernels refuse:
+    ``attention`` sends the temporal sub-layer too to the fused backend (4
+    fused calls a step, 4 a predict) and launches no short kernel; the loss
+    and logits are finite."""
+    assert _timesformer_step_and_predict(card, **overrides) == (8, 0, 0, 0)
 
 
 # TimeSformer-HR's temporal attention at batch 8: 8 · 784 sequences of 16

@@ -4,9 +4,11 @@ the packed projection, forward and gradient; a lane-level emulation of the
 CUDA kernels' algorithm (``csrc/short_attention.cu``: ldmatrix and mma.sync
 fragments, the masked softmax in the accumulators, the staged transposes)
 against exact math; the fake implementations; what the card path refuses
-before any build or launch; the registration and counters without nvcc; and
-TimeSformer's ``Attention`` sending short sequences to the op and long ones
-to ``attention()``. The kernels themselves run on the card:
+before any build or launch; the registration and counters without nvcc;
+what the kernels take (``kernel_takes``); and ``attention(qkv, heads)``,
+directly and through TimeSformer's ``Attention``, sending short sequences
+to the op and long ones to the q/k/v views. The kernels themselves run on
+the card:
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase short_attention."""
 
 import collections
@@ -257,6 +259,15 @@ def test_fakes_give_the_kernels_shapes(n, length, heads):
         tuple(qkv.shape), torch.bfloat16, True)
 
 
+@pytest.mark.parametrize("dtype,head_dim,length,takes", [
+    (torch.bfloat16, 64, 16, True), (torch.bfloat16, 64, 32, True),
+    (torch.bfloat16, 64, 33, False), (torch.float32, 64, 16, False),
+    (torch.bfloat16, 32, 16, False), (torch.bfloat16, 64, 0, False),
+])
+def test_kernel_takes_bf16_heads_of_64_up_to_32_tokens(dtype, head_dim, length, takes):
+    assert sa.kernel_takes(dtype, head_dim, length) is takes
+
+
 @pytest.mark.parametrize("qkv,heads,match", [
     (_qkv(0, 2, 16, 2, torch.float32), 2, "bfloat16"),
     (_qkv(0, 2, 16, 4, torch.bfloat16, head=32), 4, "heads of 64"),
@@ -303,10 +314,21 @@ class _OpCounts(TorchDispatchMode):
 
 @pytest.mark.parametrize("length,short", [(16, True), (32, True), (33, False), (785, False)])
 def test_attention_dispatches_by_sequence_length(length, short):
-    """TimeSformer's ``Attention`` sends a sequence of at most 32 tokens (the
-    temporal sub-layer's 16) to the op, forward and backward, and a longer
-    one (the spatial sub-layer's 785) to ``attention()`` on q, k, v views;
-    both give the same output."""
+    """On the CPU ``attention(qkv, heads)`` sends a sequence of at most 32
+    tokens (the temporal sub-layer's 16) to the op, forward and backward,
+    and a longer one (the spatial sub-layer's 785) to ``plain_attention``
+    on q, k, v views; both give the views' attention. TimeSformer's
+    ``Attention`` does the same through it."""
+    qkv = _qkv(length, 2, length, 2).requires_grad_()
+    before = att.plain_attention.calls
+    with _OpCounts() as counts:
+        got = att.attention(qkv, 2)
+        got.sum().backward()
+    assert (counts.calls[OP], counts.calls[BACKWARD_OP]) == ((1, 1) if short else (0, 0))
+    assert att.plain_attention.calls == before + (0 if short else 1)
+    torch.testing.assert_close(got.detach(), _views_attention(qkv.detach(), 2), rtol=0,
+                               atol=1e-6)
+
     block = tsf.Attention(128, 2)
     x = torch.randn((2, length, 128), generator=torch.Generator().manual_seed(length),
                     requires_grad=True)
