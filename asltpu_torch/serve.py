@@ -3,10 +3,16 @@ batched streaming inference run as a long-lived service. Counterpart of
 ``asltpu/serve.py``.
 
 - One batcher thread owns the device: it drains the request queue up to
-  ``max_batch`` requests or ``max_delay_ms``, pads the batch to the
-  smallest batch bucket that holds it, copies it to ``model.device``, runs
-  ``predict_fn`` and fulfils each request's future. Only this thread
-  launches the preprocess kernels, so their launch counters stay exact.
+  ``max_batch`` requests or ``max_delay_ms``, writes the batch into the
+  buffers kept for the smallest batch bucket that holds it, copies it to
+  ``model.device``, runs ``predict_fn`` and fulfils each request's future.
+  Only this thread launches the preprocess kernels, so their launch
+  counters stay exact.
+- A bucket's buffers live as long as the server: host rows, page-locked
+  when the model is on the card, and a device tensor of the bucket's
+  shape. A batch is written into the host rows in place, only its real
+  rows cross to the card, and the padding (the last row repeated) is
+  written there.
 - Requests carry staged frames (and/or landmarks): decode happens in the
   caller before ``submit``, so a slow codec never stalls the device.
 - ``predict_fn`` enters inference mode inside itself and the kernels
@@ -22,14 +28,12 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from asltpu_torch.api import Model, gloss_label
-from asltpu_torch.config import PoseBiLSTMConfig
-from asltpu_torch.data.pad import pad_to_batch
 from asltpu_torch.utils import profiling
 
 
@@ -37,12 +41,17 @@ from asltpu_torch.utils import profiling
 class ServerStats:
     """Counters of the batches served, always kept. Latency runs from
     ``submit`` to the answer; queue wait from ``submit`` to the batcher
-    taking the request off the queue; assembly is the stack and pad of a
-    batch, copy its transfer to the model's device."""
+    taking the request off the queue; assembly is the in-place fill of a
+    bucket's host rows with the batch, copy the host time to start its
+    rows' transfer and the padding on the model's device (on the card the
+    transfer itself runs on after, inside the predict). ``staged_batches``
+    counts the batches filled into page-locked rows: every batch on the
+    card, none on the CPU."""
 
     requests: int = 0
     batches: int = 0
     padded_slots: int = 0
+    staged_batches: int = 0
     total_latency_s: float = 0.0
     total_queue_wait_s: float = 0.0
     total_assemble_s: float = 0.0
@@ -67,6 +76,42 @@ class ServerStats:
     @property
     def avg_copy_ms(self) -> float:
         return 1e3 * self.total_copy_s / self.batches if self.batches else 0.0
+
+
+class _Staging:
+    """The buffers one input of one batch bucket is batched in: ``host``,
+    the rows a batch is written into (page-locked when the model is on the
+    card), and ``batch``, the bucket-sized tensor the model reads (on the
+    card; on the CPU a view of ``host``)."""
+
+    def __init__(self, shape: Tuple[int, ...], dtype: np.dtype, device: torch.device):
+        self.pinned = device.type == "cuda"
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        # Normal tensors even under a caller's inference mode: the padding
+        # writes into ``batch`` from the batcher thread, outside it.
+        with torch.inference_mode(False):
+            self._rows = torch.empty(shape, dtype=tdtype, pin_memory=self.pinned)
+            self.batch = (torch.empty(shape, dtype=tdtype, device=device) if self.pinned
+                          else self._rows)
+        self.host = self._rows.numpy()
+        self._copied = torch.cuda.Event() if self.pinned else None
+
+    def writable(self) -> np.ndarray:
+        """``host``, once the last copy out of it has finished."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        return self.host
+
+    def load(self, n: int) -> torch.Tensor:
+        """``batch`` with the first ``n`` rows of ``host`` (copied without
+        waiting, on the device's current stream) and the last of them
+        repeated into the rest."""
+        if self.pinned:
+            self.batch[:n].copy_(self._rows[:n], non_blocking=True)
+            self._copied.record(torch.cuda.current_stream(self.batch.device))
+        if n < len(self.batch):
+            self.batch[n:] = self.batch[n - 1]
+        return self.batch
 
 
 class _Request:
@@ -120,7 +165,10 @@ class PredictServer:
         self.stats = ServerStats()
         self._request_ids = itertools.count()
         self._fn = model.predict_fn()
-        self._pose_only = isinstance(model.cfg, PoseBiLSTMConfig)
+        # (bucket, clip shape, dtype) → that input's buffers. The lock makes
+        # warm() and the batcher take turns with them.
+        self._staging: Dict[tuple, _Staging] = {}
+        self._staging_lock = threading.Lock()
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._running = True
         # Guards the (_running check → put) pair in submit against the
@@ -163,7 +211,7 @@ class PredictServer:
         if self.model.takes_landmarks and landmarks is None:
             raise ValueError("model requires landmarks")
         # Shapes are checked per request: a malformed one would otherwise
-        # fail np.stack in _assemble and fail its whole batch.
+        # fail _assemble and fail its whole batch.
         if self._frames_shape is not None and (
             tuple(np.shape(frames)) != self._frames_shape
         ):
@@ -224,39 +272,56 @@ class PredictServer:
                 return b
         return self.max_batch
 
-    def _copy_in(self, args: Tuple[np.ndarray, ...]) -> List[torch.Tensor]:
-        """A padded host batch → the model's inputs on its device (the pose
-        model takes the landmarks alone)."""
-        if self._pose_only:
-            args = args[-1:]
-        return [torch.from_numpy(a).to(self.model.device) for a in args]
-
     def _predict(self, xs: List[torch.Tensor]) -> np.ndarray:
         return self._fn(*xs).cpu().numpy()
 
     def warm(self):
         """Run every bucket once with zeros on the device before serving,
-        so that the CUDA kernels are built and cuDNN has chosen its
-        algorithms for each batch size before the first request. Call it
-        before requests arrive."""
+        so that the CUDA kernels are built, cuDNN has chosen its algorithms
+        for each batch size and each bucket's buffers are made before the
+        first request. Call it before requests arrive."""
         for b in self.batch_buckets:
-            args = []
-            if self._frames_shape is not None:
-                args.append(np.zeros((b, *self._frames_shape), np.uint8))
-            if self._lm_shape is not None:
-                args.append(np.zeros((b, *self._lm_shape), np.float32))
-            self._predict(self._copy_in(tuple(args)))
+            with self._staging_lock:
+                stages = []
+                if self._frames_shape is not None:
+                    stages.append(self._stage(b, self._frames_shape, np.dtype(np.uint8)))
+                if self._lm_shape is not None:
+                    stages.append(self._stage(b, self._lm_shape, np.dtype(np.float32)))
+                for s in stages:
+                    s.writable().fill(0)
+                self._predict([s.load(b) for s in stages])
 
-    def _assemble(self, reqs: List[_Request]) -> Tuple[np.ndarray, ...]:
+    def _stage(self, bucket: int, shape: Tuple[int, ...], dtype: np.dtype) -> _Staging:
+        key = (bucket, shape, dtype)
+        stage = self._staging.get(key)
+        if stage is None:
+            stage = self._staging[key] = _Staging((bucket, *shape), dtype, self.model.device)
+        return stage
+
+    def _fill(self, bucket: int, rows: List[np.ndarray], dtype: np.dtype) -> _Staging:
+        """Write ``rows`` (one shape: ``submit`` checks it) into the first
+        rows of the bucket's host buffer for their shape and ``dtype``
+        (cast as they are written)."""
+        stage = self._stage(bucket, rows[0].shape, dtype)
+        host = stage.writable()
+        for i, r in enumerate(rows):
+            host[i] = r
+        return stage
+
+    def _assemble(self, reqs: List[_Request]) -> List[_Staging]:
+        """The batch written into its bucket's buffers, one an input: the
+        frames in the dtype ``np.stack`` would give them, the landmarks in
+        fp32."""
         bucket = self._bucket_for(len(reqs))
-        args = []
+        stages = []
         if self.model.takes_rgb:
-            args.append(pad_to_batch(np.stack([r.frames for r in reqs]), bucket))
+            rows = [np.asarray(r.frames) for r in reqs]
+            stages.append(self._fill(bucket, rows, np.result_type(*{r.dtype for r in rows})))
         if self.model.takes_landmarks:
-            args.append(pad_to_batch(
-                np.stack([r.landmarks for r in reqs]).astype(np.float32), bucket))
+            rows = [np.asarray(r.landmarks) for r in reqs]
+            stages.append(self._fill(bucket, rows, np.dtype(np.float32)))
         self.stats.padded_slots += bucket - len(reqs)
-        return tuple(args)
+        return stages
 
     def _loop(self):
         now = time.time_ns
@@ -265,13 +330,14 @@ class PredictServer:
             if not reqs:
                 break
             try:
-                t_collected = now()
-                args = self._assemble(reqs)
-                t_assembled = now()
-                xs = self._copy_in(args)
-                t_copied = now()
-                logits = self._predict(xs)[: len(reqs)]
-                t_predicted = now()
+                with self._staging_lock:
+                    t_collected = now()
+                    stages = self._assemble(reqs)
+                    t_assembled = now()
+                    xs = [s.load(len(reqs)) for s in stages]
+                    t_copied = now()
+                    logits = self._predict(xs)[: len(reqs)]
+                    t_predicted = now()
                 ids = logits.argmax(axis=-1)
                 t_answered = now()
                 st = self.stats
@@ -281,6 +347,7 @@ class PredictServer:
                 st.total_copy_s += (t_copied - t_assembled) / 1e9
                 st.requests += len(reqs)
                 st.batches += 1
+                st.staged_batches += all(s.pinned for s in stages)
                 for i, r in enumerate(reqs):
                     r.future.set_result((gloss_label(ids[i], self.gloss_names), logits[i]))
                 t_replied = now()
@@ -309,8 +376,10 @@ def _record_batch(batch: int, reqs: List[_Request], stamps: Tuple[int, ...]) -> 
     """The spans of one served batch, from the batcher's stamps:
     ``serve.batch`` (first request taken → last future set) and its
     children ``serve.collect`` (→ deadline or full), ``serve.assemble``
-    (stack, pad), ``serve.copy`` (to the device), ``serve.predict`` (model,
-    logits back), ``serve.reply`` (argmax, futures), and each request's
+    (the in-place fill of the bucket's host rows), ``serve.copy`` (the
+    launch of the real rows' copy and of the padding on the device),
+    ``serve.predict`` (model, logits back; on the card it waits for the
+    copy too), ``serve.reply`` (argmax, futures), and each request's
     ``serve.queue`` (submit → taken)."""
     first = reqs[0].t_taken
     parent = profiling.record_span("serve.batch", first, stamps[-1], batch=batch)

@@ -477,12 +477,21 @@ def test_i3d_train_and_eval_steps_on_the_card(card):
     torch.testing.assert_close(bn.running_mean, 0.1 * mean, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("lane,pp", [
+SERVER_LANES = [
     ("rgb", {"num_frames": 3, "staging_size": (64, 80), "resize_short": 56,
              "crop": 48}),
     ("yuv420", {"num_frames": 3, "staging_size": (48, 48), "resize_short": 48,
                 "crop": 48, "staging_format": "yuv420"}),
-])
+]
+
+
+def _served_model(pp):
+    return api.load_model("mobilenet_gru", seed=5, num_classes=7, gru_hidden=32,
+                          width_mult=0.35, compute_dtype="float32",
+                          preprocess=dict(pp, out_dtype="float32"))
+
+
+@pytest.mark.parametrize("lane,pp", SERVER_LANES)
 def test_server_on_the_card_matches_predict(card, lane, pp):
     """``PredictServer`` on the card: six concurrent requests batched into
     buckets of 1 and 4 give ``predict``'s logits on the card (fp32, TF32
@@ -491,9 +500,7 @@ def test_server_on_the_card_matches_predict(card, lane, pp):
     shutdown."""
     from asltpu_torch.serve import PredictServer
 
-    model = api.load_model("mobilenet_gru", seed=5, num_classes=7, gru_hidden=32,
-                           width_mult=0.35, compute_dtype="float32",
-                           preprocess=dict(pp, out_dtype="float32"))
+    model = _served_model(pp)
     shape = (6, 3, *model.cfg.preprocess.staged_frame_shape)
     frames = np.random.default_rng(6).integers(0, 256, shape, np.uint8)
     counter = k.preprocess_rgb if lane == "rgb" else k.preprocess_yuv420
@@ -507,6 +514,36 @@ def test_server_on_the_card_matches_predict(card, lane, pp):
     finally:
         server.shutdown()
     assert not server._thread.is_alive()
+    _, want = api.predict(model, frames)
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("lane,pp", SERVER_LANES)
+def test_server_stages_batches_in_page_locked_buffers(card, lane, pp):
+    """Twelve requests in flight at once, batched into buckets of 1 and 4
+    over several batches: every batch is filled into page-locked host rows
+    kept per bucket (``staged_batches`` counts each), only the real rows
+    cross to the card and the padding is written there, and the answers
+    are ``predict``'s logits on the card."""
+    from asltpu_torch.serve import PredictServer
+
+    model = _served_model(pp)
+    shape = (12, 3, *model.cfg.preprocess.staged_frame_shape)
+    frames = np.random.default_rng(7).integers(0, 256, shape, np.uint8)
+    server = PredictServer(model, max_batch=4, max_delay_ms=20, batch_buckets=(1, 4))
+    try:
+        server.warm()
+        futures = [server.submit(f) for f in frames]
+        got = np.stack([f.result(timeout=120)[1] for f in futures])
+    finally:
+        server.shutdown()
+    assert not server._thread.is_alive()
+    st = server.stats
+    assert st.requests == 12 and st.batches >= 3
+    assert st.staged_batches == st.batches
+    stages = list(server._staging.values())
+    assert {k[0] for k in server._staging} == {1, 4}
+    assert all(torch.from_numpy(s.host).is_pinned() and s.batch.is_cuda for s in stages)
     _, want = api.predict(model, frames)
     np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
 

@@ -5,7 +5,8 @@ servers with ``max_batch`` 4 and ``batch_buckets=(1, 4)``, from concurrent
 submitters too, for the RGB, pose and fusion models; the same
 ``ValueError`` texts for bad requests, the same bucket padding for a
 sequential pattern, and ``RuntimeError`` after shutdown with no future
-left pending. The JAX variables are drawn from ``jax.eval_shape``
+left pending; the port's batches are filled in place into buffers kept
+per bucket, each padding row the last real row. The JAX variables are drawn from ``jax.eval_shape``
 (``draw_train_variables``: random kernels, recurrent weights and
 BatchNorm statistics) and carried into the port through
 ``state_dict_from_jax``."""
@@ -374,3 +375,72 @@ def test_a_failing_batch_fails_its_futures_and_serving_goes_on(rgb, monkeypatch)
         np.testing.assert_allclose(logits, tapi.predict(tm, frames[1])[1], rtol=0, atol=1e-5)
     finally:
         server.shutdown()
+
+
+STAGED_GROUPS = (1, 4, 3, 6)  # 3 after 4: a short batch in a bucket a full one used
+
+
+def _staged_case(case, rgb):
+    """(JAX server, port model, requests) of a staging case; landmarks go
+    in as float64, which both servers cast to fp32."""
+    if case == "rgb":
+        jm, tm, js, _ = rgb
+        frames = staged_frames(tm.cfg, sum(STAGED_GROUPS), seed=17)
+        return js, None, tm, [(f,) for f in frames]
+    family, overrides = ("pose_bilstm", POSE) if case == "pose" else ("two_stream", FUSION)
+    jm, tm = model_pair(family, overrides, seed=18)
+    lm = synthetic_landmarks(sum(STAGED_GROUPS), tm.cfg.num_frames, seed=19).astype(np.float64)
+    if case == "pose":
+        return JServer(jm, **SERVER), jm, tm, [(None, x) for x in lm]
+    frames = staged_frames(tm.cfg, len(lm), seed=20)
+    return JServer(jm, **SERVER), jm, tm, list(zip(frames, lm))
+
+
+@pytest.mark.parametrize("case", ["rgb", "pose", "fusion"])
+def test_batches_are_staged_in_place_per_bucket(rgb, case):
+    """Groups of 1, 4, 3 and 6 requests, each one batch, under buckets
+    (1, 4, 8): the JAX server's logits; the model sees each bucket's own
+    buffer (the same memory from batch to batch, on the CPU the host rows
+    themselves) with every padding row equal to the last real row, so the
+    batch of 3 carries nothing of the batch of 4 before it; landmarks
+    reach it as fp32."""
+    js, own, tm, requests = _staged_case(case, rgb)
+    server = TServer(tm, max_batch=8, max_delay_ms=300, batch_buckets=(1, 4, 8))
+    seen = []
+    real = server._fn
+
+    def spy(*xs):
+        seen.append([(x.data_ptr(), x.clone()) for x in xs])
+        return real(*xs)
+
+    server._fn = spy
+    try:
+        want = _results(js, requests)
+        got, i = [], 0
+        for n in STAGED_GROUPS:
+            got += _results(server, requests[i:i + n])
+            i += n
+    finally:
+        server.shutdown()
+        if own is not None:
+            js.shutdown()
+    _assert_same(got, want)
+    st = server.stats
+    assert (st.requests, st.batches, st.padded_slots, st.staged_batches) == (14, 4, 3, 0)
+    # The inputs by their place in submit's arguments: frames 0, landmarks 1.
+    slots = [k for k, a in enumerate(requests[0]) if a is not None]
+    i = 0
+    for n, bucket, xs in zip(STAGED_GROUPS, (1, 4, 4, 8), seen):
+        assert len(xs) == len(slots)
+        for slot, (ptr, x) in zip(slots, xs):
+            rows = np.stack([r[slot] for r in requests[i:i + n]])
+            dtype = np.dtype(np.float32) if slot else rows.dtype
+            stage = server._staging[(bucket, rows.shape[1:], dtype)]
+            assert ptr == stage.host.ctypes.data == stage.batch.data_ptr()
+            assert x.shape == (bucket, *rows.shape[1:]) and x.numpy().dtype == dtype
+            np.testing.assert_array_equal(x[:n].numpy(), rows.astype(dtype))
+            for pad in x[n:]:
+                assert torch.equal(pad, x[n - 1])
+        i += n
+    # Bucket 4 served twice from one buffer per input.
+    assert seen[1][0][0] == seen[2][0][0]
