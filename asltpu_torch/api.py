@@ -1,13 +1,15 @@
 """Public API: ``load_model``, ``load_clip``, ``predict`` and
 ``stream_predict``. Counterpart of ``asltpu/api.py`` for the five configs:
 ``pose_bilstm``, ``mobilenet_gru``, ``resnet_transformer``, ``i3d`` and
-``two_stream``; and the port's own sixth, ``timesformer`` (TimeSformer-HR).
+``two_stream``; and the port's own sixth and seventh, ``timesformer``
+(TimeSformer-HR) and ``video_swin`` (Video Swin-B).
 
 For the RGB models everything after host decode runs on the device:
 preprocess (a hand-written CUDA kernel on the card), then the per-frame
 backbone over the B·T frames (MobileNetV2 or ResNet-18) and the temporal
-head (GRU or transformer), or I3D's 3D network or TimeSformer's divided
-space–time attention over the whole clip.
+head (GRU or transformer), or I3D's 3D network, TimeSformer's divided
+space–time attention or Video Swin's 3D shifted windows over the whole
+clip.
 ``pose_bilstm`` takes landmarks [T, 543, 3] instead of frames; it
 normalises them and runs its BiLSTM on the device. ``two_stream`` takes
 both: frames through MobileNetV2, landmarks of the same T, and
@@ -45,6 +47,7 @@ from asltpu_torch.config import (
     ResNet18TransformerConfig,
     TimeSformerConfig,
     TwoStreamFusionConfig,
+    VideoSwinConfig,
     get_config,
 )
 from asltpu_torch.data.decode import decode_clip, make_decode_pool
@@ -57,6 +60,7 @@ from asltpu_torch.models.fusion import TwoStreamFusion
 from asltpu_torch.models.i3d import I3D
 from asltpu_torch.models.timesformer import TimeSformer
 from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
+from asltpu_torch.models.video_swin import VideoSwin
 from asltpu_torch.ops.preprocess import preprocess_clip
 from asltpu_torch.utils import profiling
 
@@ -123,6 +127,19 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             drop_path_rate=cfg.drop_path_rate,
             dtype=cfg.compute_torch_dtype,
         )
+    if isinstance(cfg, VideoSwinConfig):
+        return VideoSwin(
+            num_classes=cfg.num_classes,
+            patch_size=cfg.patch_size,
+            embed_dim=cfg.embed_dim,
+            depths=cfg.depths,
+            num_heads=cfg.num_heads,
+            window_size=cfg.window_size,
+            mlp_ratio=cfg.mlp_ratio,
+            drop_path_rate=cfg.drop_path_rate,
+            dropout=cfg.dropout,
+            dtype=cfg.compute_torch_dtype,
+        )
     raise ValueError(f"no model for config {type(cfg).__name__}")
 
 
@@ -131,9 +148,9 @@ def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
     besides its norms: the GRU head of ``mobilenet_gru`` (the recurrence
     amplifies low-precision error); the classifiers that read a pooled
     output in fp32 (the transformer head's and the fusion model's ``fc``,
-    I3D's ``logits``, TimeSformer's ``head``); all of ``pose_bilstm``, as
-    the JAX package computes it. TimeSformer's LayerNorms stay fp32 as
-    every norm does."""
+    I3D's ``logits``, TimeSformer's and Video Swin's ``head``); all of
+    ``pose_bilstm``, as the JAX package computes it. The transformers'
+    LayerNorms stay fp32 as every norm does."""
     if isinstance(module, PoseBiLSTM):
         return (module,)
     if isinstance(module, MobileNetV2GRU):
@@ -142,7 +159,7 @@ def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
         return (module.logits,)
     if isinstance(module, TwoStreamFusion):
         return (module.fc,)
-    if isinstance(module, TimeSformer):
+    if isinstance(module, (TimeSformer, VideoSwin)):
         return (module.head,)
     return (module.head.fc,)
 
@@ -233,9 +250,9 @@ def load_model(
     return Model(cfg=cfg, module=module, device=dev)
 
 
-# The families whose modules train: all six.
+# The families whose modules train: all seven.
 TRAINABLE = (PoseBiLSTMConfig, MobileNetV2GRUConfig, ResNet18TransformerConfig, I3DConfig,
-             TwoStreamFusionConfig, TimeSformerConfig)
+             TwoStreamFusionConfig, TimeSformerConfig, VideoSwinConfig)
 
 
 def build_trainable(name: str, seed: int = 0,

@@ -3,8 +3,9 @@
 A field-for-field copy of ``asltpu/config.py`` (the five configs,
 ``PreprocessConfig``, ``TrainConfig`` and ``get_config``), so a config built
 here compares equal, field by field, with the JAX package's, and one family
-of the port's own, ``timesformer`` (:class:`TimeSformerConfig`), which the
-JAX package does not have. Two things differ:
+two of the port's own, ``timesformer`` (:class:`TimeSformerConfig`) and
+``video_swin`` (:class:`VideoSwinConfig`), which the JAX package does not
+have. Two things differ:
 
 - ``out_jnp_dtype``/``compute_jnp_dtype`` become
   ``out_torch_dtype``/``compute_torch_dtype``;
@@ -202,6 +203,29 @@ class TimeSformerConfig(ModelConfig):
 
 
 @dataclasses.dataclass(frozen=True)
+class VideoSwinConfig(ModelConfig):
+    """Video Swin-B (Liu et al., CVPR 2022): 3D shifted-window attention
+    with a learned relative-position bias over 32 frames of 224²,
+    fine-tuned on WLASL-2000. The port's own family: the JAX package has
+    no counterpart."""
+
+    name: str = "video_swin"
+    num_classes: int = 2000  # WLASL-2000
+    num_frames: int = 32
+    patch_size: Tuple[int, int, int] = (2, 4, 4)  # (T, H, W)
+    embed_dim: int = 128
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: Tuple[int, int, int] = (8, 7, 7)
+    mlp_ratio: int = 4
+    # Stochastic depth, linearly spaced over all blocks from 0 at block 0.
+    drop_path_rate: float = 0.3
+    # Dropout before the classifier (the published I3DHead's).
+    dropout: float = 0.5
+    preprocess: PreprocessConfig = PreprocessConfig(num_frames=32)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters for the I3D fine-tune path."""
 
@@ -232,6 +256,7 @@ CONFIG_REGISTRY = {
     "i3d": I3DConfig,
     "two_stream": TwoStreamFusionConfig,
     "timesformer": TimeSformerConfig,
+    "video_swin": VideoSwinConfig,
 }
 
 

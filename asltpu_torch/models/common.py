@@ -255,6 +255,35 @@ def dense(x: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
     return torch.matmul(x, cast(linear.weight, x.dtype).t()) + cast(linear.bias, x.dtype)
 
 
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer`` in the dtype of ``x``, its weight and bias cast to it: one
+    product with the bias (where it has one) added in its epilogue, as
+    ``nn.Linear`` computes it (:func:`dense` rounds the product and the sum
+    apart, as flax does)."""
+    bias = None if layer.bias is None else cast(layer.bias, x.dtype)
+    return F.linear(x, cast(layer.weight, x.dtype), bias)
+
+
+def keep_mask(n: int, p: float, train: bool, generator: Optional[torch.Generator],
+              device: torch.device) -> Optional[torch.Tensor]:
+    """Stochastic depth's draw for a branch whose first axis has ``n``
+    samples: True where a sample's branch is kept (its uniform draw at
+    least ``p``, by :func:`batch_rand`); None outside training or at ``p``
+    0, where nothing is drawn."""
+    if not train or p == 0.0:
+        return None
+    return batch_rand((n,), generator, device) >= p
+
+
+def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor], p: float) -> torch.Tensor:
+    """The branch ``x`` with the samples (its first axis) that ``keep``
+    drops at 0 and the kept ones divided by 1 − p in the dtype of ``x``."""
+    if keep is None:
+        return x
+    keep = keep.view(-1, *([1] * (x.dim() - 1)))
+    return torch.where(keep, x / in_dtype(1.0 - p, x.dtype), 0.0)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU as ``jax.nn.gelu(approximate=False)`` computes it:
     0.5·x·erfc(−x·√½), with √½ rounded to the input's dtype and each
@@ -340,18 +369,21 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     packed q/k/v projection as ``nn.MultiheadAttention``'s (Xavier-uniform,
     zero bias), GRUs and LSTMs U(-1/√H, 1/√H), the transformer's CLS token
     and positions truncated-normal (std 0.02), the fusion model's positions
-    too, and TimeSformer as its reference initialises it
-    (:meth:`~asltpu_torch.models.timesformer.TimeSformer.reset_parameters`)."""
+    too, and TimeSformer and Video Swin as their references initialise them
+    (:meth:`~asltpu_torch.models.timesformer.TimeSformer.reset_parameters`,
+    :meth:`~asltpu_torch.models.video_swin.VideoSwin.reset_parameters`)."""
     # These modules import this one.
     from asltpu_torch.models.fusion import TwoStreamFusion
     from asltpu_torch.models.i3d import Logits
     from asltpu_torch.models.temporal import TransformerHead
     from asltpu_torch.models.timesformer import TimeSformer
+    from asltpu_torch.models.video_swin import VideoSwin
     from asltpu_torch.ops.recurrent import GRU
 
     with torch.no_grad():
-        # TimeSformer's parameters are drawn once, by its reset_parameters.
-        own = {s for t in module.modules() if isinstance(t, TimeSformer) for s in t.modules()}
+        # The transformers' parameters are drawn once, by their reset_parameters.
+        own = {s for t in module.modules() if isinstance(t, (TimeSformer, VideoSwin))
+               for s in t.modules()}
         for m in module.modules():
             if m in own:
                 continue
@@ -378,7 +410,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         # I3D's classifier is a 1×1×1 conv, drawn above as one; it is a dense
         # layer over 1024 features.
         for m in module.modules():
-            if isinstance(m, (Logits, TimeSformer)):
+            if isinstance(m, (Logits, TimeSformer, VideoSwin)):
                 m.reset_parameters(generator)
 
 

@@ -53,40 +53,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from asltpu_torch.models.common import batch_rand, cast, conv2d, in_dtype, layer_norm, sublayer
+from asltpu_torch.models.common import (cast, conv2d, drop_path, keep_mask, layer_norm, linear,
+                                        sublayer)
 from asltpu_torch.ops.attention import attention
 
 TIME_SPAN = "timesformer.time_attn"
 SPACE_SPAN = "timesformer.space_attn"
 LN_EPS = 1e-6
-
-
-def _linear(x: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
-    """``linear`` in the dtype of ``x``, its weight and bias cast to it: one
-    product with the bias added in its epilogue (the reference's
-    ``nn.Linear``; ``common.dense`` rounds the product and the sum apart,
-    as flax does)."""
-    return F.linear(x, cast(linear.weight, x.dtype), cast(linear.bias, x.dtype))
-
-
-def keep_mask(n: int, p: float, train: bool, generator: Optional[torch.Generator],
-              device: torch.device) -> Optional[torch.Tensor]:
-    """Stochastic depth's draw for a branch whose first axis has ``n``
-    samples: True where a sample's branch is kept (its uniform draw at
-    least ``p``); None outside training or at ``p`` 0, where nothing is
-    drawn."""
-    if not train or p == 0.0:
-        return None
-    return batch_rand((n,), generator, device) >= p
-
-
-def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor], p: float) -> torch.Tensor:
-    """The branch ``x`` with the samples (its first axis) that ``keep``
-    drops at 0 and the kept ones divided by 1 − p in the dtype of ``x``."""
-    if keep is None:
-        return x
-    keep = keep.view(-1, *([1] * (x.dim() - 1)))
-    return torch.where(keep, x / in_dtype(1.0 - p, x.dtype), 0.0)
 
 
 class PatchEmbed(nn.Module):
@@ -108,7 +81,7 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[N, L, d] → [N, L, d] in the dtype of ``x``."""
-        return _linear(attention(_linear(x, self.qkv), self.num_heads), self.proj)
+        return linear(attention(linear(x, self.qkv), self.num_heads), self.proj)
 
 
 class Mlp(nn.Module):
@@ -118,7 +91,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(F.gelu(_linear(x, self.fc1)), self.fc2)
+        return linear(F.gelu(linear(x, self.fc1)), self.fc2)
 
 
 class Block(nn.Module):
@@ -146,7 +119,7 @@ class Block(nn.Module):
         y = self.temporal_attn(y)
         y = drop_path(y, keep_mask(y.shape[0], self.drop_path, train, generator, x.device),
                       self.drop_path)
-        return x + _linear(y.view(b, n, d), self.temporal_fc)
+        return x + linear(y.view(b, n, d), self.temporal_fc)
 
     def spatial(self, cls: torch.Tensor, x: torch.Tensor, t: int, train: bool = False,
                 generator: Optional[torch.Generator] = None

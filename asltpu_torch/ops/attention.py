@@ -1,7 +1,10 @@
-"""Softmax attention over heads, ``softmax(q·kᵀ / √D)·v``, for TimeSformer's
-temporal and spatial sub-layers. :func:`attention` is where the port
-chooses the kernel, from what it sees of the packed q/k/v projection: its
-device, dtype, head size and sequence length.
+"""Softmax attention over heads, ``softmax(q·kᵀ / √D + bias)·v``, for
+TimeSformer's temporal and spatial sub-layers and Video Swin's window
+sub-layers. :func:`attention` is where the port chooses the kernel, from
+what it sees of the packed q/k/v projection (its device, dtype, head size
+and sequence length) and of the bias.
+
+Without a bias:
 
 - The short-sequence op
   (:func:`asltpu_torch.ops.short_attention_kernels.short_attention`) on a
@@ -14,6 +17,13 @@ device, dtype, head size and sequence length.
   :func:`fused_attention` on the card and :func:`plain_attention` on the
   CPU.
 
+With an additive bias [W, H, L, L] (W the windows of one group, or 1),
+broadcast over the N = G·W sequences of the projection, which come
+group-major (Video Swin: a clip's windows in a row): q, k and v as the same
+views, then :func:`biased_attention` on the card and :func:`plain_attention`
+with the bias on the CPU. The bias takes a gradient (the relative-position
+table's) wherever it requires one.
+
 :func:`fused_attention` is PyTorch's ``scaled_dot_product_attention`` held
 to the backends that never write the [q, k] weights to memory
 (:data:`FUSED`: cuDNN's, FlashAttention-2 and the memory-efficient
@@ -23,19 +33,31 @@ none of them takes the inputs (float64, say) it raises; it never falls
 back to the math backend, which materialises the weights. Each call adds
 one to ``fused_attention.calls``.
 
-:func:`plain_attention` is the reference's order of operations: the
-product scaled, its softmax, the weighted sum. Each call adds one to
-``plain_attention.calls``.
+:func:`biased_attention` is the same call with the bias as its additive
+mask, held to the memory-efficient kernel (:data:`BIASED`), the fused
+backend that takes an additive bias and returns its gradient
+(FlashAttention takes no bias; cuDNN's is left out, as its bias gradient
+is not promised). It raises where that kernel does not take the inputs.
+The bias is laid out as the kernel reads it without a copy of its own:
+each row padded to a multiple of 16 keys in storage, and the windows of a
+group repeated over the groups (one copy where W > 1, a broadcast view
+where W = 1). Each call adds one to ``biased_attention.calls``.
 
-Both take [N, H, L, D] views whose last axis is contiguous, as a packed
-q/k/v projection's output gives them after ``transpose(1, 2)``; no mask,
-no dropout."""
+:func:`plain_attention` is the reference's order of operations: the
+product scaled, the bias added, its softmax, the weighted sum. Each call
+adds one to ``plain_attention.calls``.
+
+All take [N, H, L, D] views whose last axis is contiguous, as a packed
+q/k/v projection's output gives them after ``transpose(1, 2)``; no
+dropout."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from asltpu_torch.ops.short_attention_kernels import MAX_LEN, kernel_takes, short_attention
@@ -43,6 +65,11 @@ from asltpu_torch.ops.short_attention_kernels import MAX_LEN, kernel_takes, shor
 # The backends that keep the weights on chip, in the order tried.
 FUSED = [SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
          SDPBackend.EFFICIENT_ATTENTION]
+# The one of them that takes an additive bias and returns its gradient.
+BIASED = [SDPBackend.EFFICIENT_ATTENTION]
+# The memory-efficient kernel reads a bias whose rows start at multiples of
+# this many elements.
+BIAS_ALIGN = 16
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,7 +77,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     fused backend (:data:`FUSED`); raises ``RuntimeError`` where none takes
     the inputs. Scale 1/√D."""
     with sdpa_kernel(FUSED, set_priority=True):
-        out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        out = F.scaled_dot_product_attention(q, k, v)
     fused_attention.calls += 1
     return out
 
@@ -58,11 +85,30 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 fused_attention.calls = 0
 
 
-def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The same attention written out: (q·kᵀ)·(1/√D), softmax over the
-    keys, times v, each in the inputs' dtype. It holds the [N, H, Lq, Lk]
+def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """:func:`fused_attention` with ``bias`` [N, H, Lq, Lk] (a broadcast
+    view will do) added to the scaled scores, on the memory-efficient
+    kernel alone (:data:`BIASED`); raises ``RuntimeError`` where it does
+    not take the inputs."""
+    with sdpa_kernel(BIASED):
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    biased_attention.calls += 1
+    return out
+
+
+biased_attention.calls = 0
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The same attention written out: (q·kᵀ)·(1/√D), plus ``bias`` (one
+    that broadcasts to [N, H, Lq, Lk]) where given, softmax over the keys,
+    times v, each in the inputs' dtype. It holds the [N, H, Lq, Lk]
     weights."""
     scores = torch.matmul(q, k.transpose(-2, -1)) * (1.0 / math.sqrt(q.shape[-1]))
+    if bias is not None:
+        scores = scores + bias
     out = torch.matmul(scores.softmax(dim=-1), v)
     plain_attention.calls += 1
     return out
@@ -71,18 +117,48 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 plain_attention.calls = 0
 
 
-def attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def per_sequence(bias: torch.Tensor, n: int) -> torch.Tensor:
+    """``bias`` [W, H, L, L] as [n, H, L, L] for n = G·W group-major
+    sequences: a broadcast view where W = 1, else the W windows repeated
+    over the G groups (one copy); laid out row-major whatever its own
+    strides (a bias whose heads are innermost would keep them so through
+    the pad and a view), each row at a multiple of :data:`BIAS_ALIGN`
+    elements in storage (padded, then sliced)."""
+    w, length = bias.shape[0], bias.shape[-1]
+    if n % w:
+        raise ValueError(f"{n} sequences are not whole groups of the bias's {w} windows")
+    pad = -length % BIAS_ALIGN
+    bias = bias.contiguous()
+    if pad:
+        bias = F.pad(bias, (0, pad))
+    if w == 1:
+        full = bias.expand(n, *bias.shape[1:])
+    else:
+        full = bias.unsqueeze(0).expand(n // w, *bias.shape).reshape(n, *bias.shape[1:])
+    return full[..., :length] if pad else full
+
+
+def attention(qkv: torch.Tensor, heads: int,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of each of ``heads`` heads over the sequences of the packed
     projection ``qkv`` [N, L, 3·d] (columns q; k; v) → [N, L, d], the
-    heads side by side, on the kernel the module docstring names."""
+    heads side by side, on the kernel the module docstring names; with
+    ``bias`` [W or 1, heads, L, L] (the dtype of ``qkv``) added to the
+    scaled scores, broadcast over N group-major sequences."""
     n, length, width = qkv.shape
     d = width // 3
     head_dim = d // heads
-    # On the CPU the op runs its plain version, which takes any dtype and head.
-    short = kernel_takes(qkv.dtype, head_dim, length) if qkv.is_cuda else length <= MAX_LEN
-    if short:
-        return short_attention(qkv, heads)
+    if bias is None:
+        # On the CPU the op runs its plain version, which takes any dtype and head.
+        short = kernel_takes(qkv.dtype, head_dim, length) if qkv.is_cuda else length <= MAX_LEN
+        if short:
+            return short_attention(qkv, heads)
     packed = qkv.view(n, length, 3, heads, head_dim)
     q, k, v = (packed[:, :, i].transpose(1, 2) for i in range(3))
-    out = fused_attention(q, k, v) if qkv.is_cuda else plain_attention(q, k, v)
+    if bias is None:
+        out = fused_attention(q, k, v) if qkv.is_cuda else plain_attention(q, k, v)
+    elif qkv.is_cuda:
+        out = biased_attention(q, k, v, per_sequence(bias, n))
+    else:
+        out = plain_attention(q, k, v, per_sequence(bias, n))
     return out.transpose(1, 2).reshape(n, length, d)

@@ -842,3 +842,190 @@ def test_short_attention_refuses_on_the_card(card):
         with pytest.raises(ValueError):
             sa.short_attention_backward(x[..., :x.shape[-1] // 3].contiguous(), x, heads)
     assert (sa.short_attention.launches, sa.short_attention_backward.launches) == before
+
+
+def _swin_block(card, stage, shifted, seed=14):
+    """One block of Video Swin-B's ``stage`` at its published width, fp32
+    masters with seeded weights (linears std √(1/fan_in), the bias table
+    N(0, 0.02²)), on the card; an fp32 input of the stage's tokens at
+    batch 1 (16 × 56 / 2^stage square); and the stage's geometry in a
+    dtype (the block computes in its input's dtype)."""
+    from perfbench.core import weights
+    from perfbench.reference import video_swin as ref
+
+    from asltpu_torch.models import video_swin as vs
+
+    cfg = {k: v for k, v in api.get_config("video_swin").__dict__.items() if k != "preprocess"}
+    j = 1 if shifted else 0
+    prefix = f"layers.{stage}.blocks.{j}."
+    specs = [(n[len(prefix):], *rest) for n, *rest in ref.param_specs(cfg) if n.startswith(prefix)]
+    dim, heads = 128 * 2 ** stage, (4, 8, 16, 32)[stage]
+    blk = vs.SwinTransformerBlock3D(dim, heads, (8, 7, 7), 4, 0.0).to(card)
+    weights.load_into(blk, weights.make_params(specs, seed, card))
+    side = 56 // 2 ** stage
+    gen = torch.Generator(card).manual_seed(seed)
+    x = torch.randn((1, 16, side, side, dim), generator=gen, device=card)
+    # Only the window of a model decides its geometry.
+    shape = vs.VideoSwin(embed_dim=8, depths=(1,), num_heads=(1,), num_classes=1)
+
+    def geometry(dtype):
+        return shape.geometry((16, side, side), torch.device(card), dtype)[j]
+
+    return blk, x, geometry
+
+
+@pytest.mark.parametrize("stage", [0, 3])
+@pytest.mark.parametrize("shifted", [False, True], ids=["window", "shifted"])
+def test_a_full_width_swin_block_in_bf16_follows_fp32(card, stage, shifted):
+    """Video Swin-B's first and last stage at their widths (128, heads 4;
+    1024, heads 32; windows of 8×7×7, the last stage's shift temporal
+    only), one block of each kind: bf16 on the card (biased attention on
+    the memory-efficient kernel) against the same block in fp32 on the
+    CPU's plain path, on the same input. The branch (output − input)
+    rounds its operands to bf16 at each of its ~6 products and the bias to
+    bf16 (2^-8 relative each), so it lies within 2^-5 of its own largest
+    value; a wrong bias, mask or window order misses by the branch's
+    size."""
+    from asltpu_torch.ops import attention as att
+
+    blk, x, geometry = _swin_block(card, stage, shifted)
+    assert (geometry(torch.bfloat16).mask is not None) == shifted
+    before = att.biased_attention.calls
+    with torch.no_grad():
+        got = (blk(x.bfloat16(), geometry(torch.bfloat16)).float() - x.bfloat16().float()).cpu()
+        assert att.biased_attention.calls == before + 1
+        x = x.cpu()
+        want = blk.cpu()(x, _on_cpu(geometry(torch.float32))) - x
+    assert float((got - want).abs().max()) <= 2 ** -5 * float(want.abs().max())
+
+
+def test_biased_attention_raises_where_its_kernel_does_not_apply(card):
+    """float64 heads with a bias, which the memory-efficient kernel does
+    not take: the call raises on the card rather than running the math
+    backend, and counts nothing."""
+    from asltpu_torch.ops import attention as att
+
+    q = torch.randn((2, 4, 33, 32), dtype=torch.float64, device=card)
+    bias = torch.zeros((1, 4, 33, 33), dtype=torch.float64, device=card)
+    before = (att.biased_attention.calls, att.plain_attention.calls)
+    with pytest.raises(RuntimeError):
+        att.biased_attention(q, q, q, att.per_sequence(bias, 2))
+    assert (att.biased_attention.calls, att.plain_attention.calls) == before
+
+
+def _on_cpu(geo):
+    from asltpu_torch.models import video_swin as vs
+
+    return vs.Geometry(geo.window, geo.shift, geo.index.cpu(),
+                       None if geo.mask is None else geo.mask.cpu())
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["window", "shifted"])
+def test_the_bias_table_gets_the_plain_paths_gradient(card, shifted):
+    """Video Swin-B's third stage (512 wide, 16 heads of 32, 16 × 14² tokens,
+    8 windows of 392): the window sub-layer's gradient of the
+    relative-position table, and of its input, in bf16 on the card's
+    kernel (the bias's gradient summed over the windows and the clips)
+    against the same module in fp32 on the CPU's plain path. bf16 rounds
+    the operands, the bias, P and dS (2^-8 relative each) and the table's
+    gradient once: within 2^-5 of each gradient's largest value; a
+    gradient that missed the mask, the windows' sum or the gather misses
+    by its own size."""
+    from asltpu_torch.models import video_swin as vs
+    from asltpu_torch.ops import attention as att
+
+    blk, x, geometry = _swin_block(card, 2, shifted)
+    grad = torch.randn(x.shape, generator=torch.Generator(card).manual_seed(15), device=card)
+
+    def grads(module, x, geo, g):
+        x = x.detach().requires_grad_()
+        y = vs.window_attention(module.attn, x, geo)
+        table = module.attn.relative_position_bias_table
+        return torch.autograd.grad(y, (table, x), g)
+
+    before = att.biased_attention.calls
+    got = grads(blk, x.bfloat16(), geometry(torch.bfloat16), grad.bfloat16())
+    assert att.biased_attention.calls == before + 1
+    want = grads(blk.cpu(), x.cpu(), _on_cpu(geometry(torch.float32)), grad.cpu())
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0
+        assert float((g.float().cpu() - w).abs().max()) <= 2 ** -5 * float(w.abs().max())
+
+
+def test_swin_trains_and_predicts_on_the_card_with_its_geometry_built_once(card):
+    """A small Video Swin (width 64, heads of 32, depths (2, 2), window
+    4×7×7 over 8 frames of 112²), bf16, through ``build_trainable`` →
+    ``make_train_step`` for three steps and ``load_model`` → ``predict``:
+    each forward makes one biased call a block and no fused or plain one;
+    the shift mask is built on the first step only; loss and logits are
+    finite, and one clip alone (a clip's windows, the whole batch, in the
+    shifted blocks' bias) predicts what it does in the batch."""
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.models import video_swin as vs
+    from asltpu_torch.ops import attention as att
+    from asltpu_torch.train import loop
+
+    kw = dict(num_classes=7, num_frames=8, embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+              window_size=(4, 7, 7), preprocess={"num_frames": 8, "staging_size": (128, 128),
+                                                 "resize_short": 128, "crop": 112})
+    frames = np.random.default_rng(16).integers(0, 256, (2, 8, 128, 128, 3), np.uint8)
+    model = api.build_trainable("video_swin", seed=3, device=card, **kw)
+    tcfg = TrainConfig(batch_size=2)
+    state = loop.create_train_state(model.module, tcfg, seed=3)
+    step = loop.make_train_step(tcfg, model.cfg.preprocess)
+
+    def counts():
+        return (att.biased_attention.calls, att.fused_attention.calls,
+                att.plain_attention.calls, vs.shift_mask.builds)
+
+    seen = [counts()]
+    for _ in range(3):
+        state, metrics = step(state, frames, np.array([1, 2], np.int32))
+        assert bool(torch.isfinite(metrics["loss"]))
+        seen.append(counts())
+    # Stage 1 (4 × 28²: shifted by (2, 3, 3)) builds one mask; stage 2
+    # (4 × 14², shifted too) another; none after.
+    assert [tuple(b - a for a, b in zip(seen[k], seen[k + 1])) for k in range(3)] == [
+        (4, 0, 0, 2), (4, 0, 0, 0), (4, 0, 0, 0)]
+    served = api.load_model("video_swin", seed=3, **kw)
+    _, logits = api.predict(served, frames)
+    assert np.isfinite(logits).all() and logits.shape == (2, 7)
+    _, one = api.predict(served, frames[1])
+    # bf16: another batch size may tile the products otherwise.
+    np.testing.assert_allclose(one, logits[1], rtol=0, atol=0.05 * float(np.abs(logits).max()))
+
+
+@pytest.mark.parametrize("length,n", [(785, 16), (16, 784)])
+def test_attention_without_a_bias_is_the_unbiased_path_bit_for_bit(card, length, n):
+    """TimeSformer's two attentions through ``attention(qkv, heads)`` with no
+    bias: the short-sequence op on the packed projection (16 tokens) or
+    ``fused_attention`` on its q/k/v views (785), the output bit for bit
+    and the packed gradient too, but where the backward adds its tiles'
+    dQ in a run's own order (cuDNN's at 785: each value within one bf16
+    rounding, 2^-7 of the largest); the biased kernel never called."""
+    from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import short_attention_kernels as sa
+
+    gen = torch.Generator(card).manual_seed(17)
+    qkv = torch.randn((n, length, 3 * 768), generator=gen, device=card).bfloat16()
+    grad = torch.randn((n, length, 768), generator=gen, device=card).bfloat16()
+
+    def run(fn):
+        x = qkv.clone().requires_grad_()
+        out = fn(x)
+        return out, torch.autograd.grad(out, x, grad)[0]
+
+    def unbiased(x):
+        if length <= sa.MAX_LEN:
+            return sa.short_attention(x, 12)
+        q, k_, v = (x.view(n, length, 3, 12, 64)[:, :, i].transpose(1, 2) for i in range(3))
+        return att.fused_attention(q, k_, v).transpose(1, 2).reshape(n, length, 768)
+
+    before = att.biased_attention.calls
+    got, want = run(lambda x: att.attention(x, 12)), run(unbiased)
+    assert att.biased_attention.calls == before
+    assert torch.equal(got[0], want[0])
+    if length <= sa.MAX_LEN:
+        assert torch.equal(got[1], want[1])
+    else:
+        assert float((got[1] - want[1]).abs().max()) <= 2 ** -7 * float(want[1].abs().max())

@@ -156,7 +156,8 @@ def test_cpu_fused_backbone_leaves_mbconv_counter_at_zero():
 
 def test_unported_names_and_backends_say_so():
     """Every config of the registry builds (``i3d``, ``two_stream`` and
-    TimeSformer-HR too, at full width); an unknown name or backend raises."""
+    TimeSformer-HR and Video Swin-B too, at full width); an unknown name or
+    backend raises."""
     from asltpu_torch import api, native
     from asltpu_torch.config import CONFIG_REGISTRY, PreprocessConfig
     from asltpu_torch.data.decode import make_decode_pool
@@ -168,6 +169,10 @@ def test_unported_names_and_backends_say_so():
     tsf = built["timesformer"]
     assert tsf.pos_embed.shape == (1, 785, 768) and tsf.time_embed.shape == (1, 16, 768)
     assert len(tsf.blocks) == 12 and tsf.head.weight.shape == (2000, 768)
+    swin = built["video_swin"]
+    assert [len(layer.blocks) for layer in swin.layers] == [2, 2, 18, 2]
+    assert swin.layers[3].blocks[1].attn.relative_position_bias_table.shape == (2535, 32)
+    assert swin.head.weight.shape == (2000, 1024)
     assert api.build_module(api.get_config("pose_bilstm")).fc.out_features == 100
     with pytest.raises(KeyError):
         api.get_config("c3d")

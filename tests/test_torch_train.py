@@ -297,7 +297,9 @@ def test_only_trainable_families_build_and_masters_are_fp32():
              "resnet_transformer": dict(d_model=32, num_heads=4, num_tx_layers=1),
              "two_stream": dict(width_mult=0.35, d_model=32, num_heads=4), "pose_bilstm": POSE,
              "timesformer": dict(num_frames=4, embed_dim=32, depth=1, num_heads=4,
-                                 preprocess={"num_frames": 4, "crop": 32})}
+                                 preprocess={"num_frames": 4, "crop": 32}),
+             "video_swin": dict(num_frames=4, embed_dim=32, depths=(2, 2), num_heads=(2, 4),
+                                window_size=(2, 4, 4), preprocess={"num_frames": 4, "crop": 32})}
     built = {"i3d"}
     for name, over in small.items():
         m = tapi.build_trainable(name, device="cpu", **{"num_classes": 5, **over})
@@ -308,7 +310,7 @@ def test_only_trainable_families_build_and_masters_are_fp32():
         assert getattr(m.module, "dtype", torch.float32) == want, name
         built.add(name)
     assert built == {"i3d", "pose_bilstm", "mobilenet_gru", "resnet_transformer",
-                     "two_stream", "timesformer"} and len(tapi.TRAINABLE) == 6
+                     "two_stream", "timesformer", "video_swin"} and len(tapi.TRAINABLE) == 7
     cast = tapi.load_model("pose_bilstm", device="cpu", **POSE)
     tloop.create_train_state(cast.module, TrainConfig())  # pose stays fp32
     bf16 = tapi.load_model("i3d", device="cpu", num_classes=5)
