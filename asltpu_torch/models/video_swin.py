@@ -30,13 +30,16 @@ A stage that is not a whole number of windows is padded after the
 LayerNorm, as there. The head is the final LayerNorm, the mean over
 (D, H, W), dropout and a linear layer.
 
-The relative-position index and each stage's shift mask are made once for
-each (stage size, device, dtype) and kept by the model (:func:`shift_mask`
-counts its builds in ``shift_mask.builds``: none once warm). Each window
-sub-layer hands its packed q/k/v projection and the bias ([1, heads, N, N],
-or with the mask [nW, heads, N, N] for a clip's nW windows) to
-:func:`asltpu_torch.ops.attention.attention`, which chooses the kernel;
-:func:`window_attention` counts the windows attended in
+The relative-position index and each stage's shift regions and mask are
+made once for each (stage size, device, dtype) and kept by the model
+(:func:`shift_mask` counts its builds in ``shift_mask.builds``: none once
+warm). Each window sub-layer hands its packed q/k/v projection and its bias
+by index (a :class:`~asltpu_torch.ops.window_attention_kernels.WindowBias`:
+the table, the window, the index, and in a shifted block the regions [nW, N]
+and the mask [nW, N, N] of a clip's nW windows) to
+:func:`asltpu_torch.ops.attention.attention`, which chooses the kernel: the
+window kernel reads the table by index, any other path the bias
+materialised; :func:`window_attention` counts the windows attended in
 ``window_attention.windows``.
 
 Precision: the compute dtype is ``dtype`` (None: the patch conv's weight
@@ -69,13 +72,13 @@ from torch import nn
 from asltpu_torch.models.common import (Dropout, cast, drop_path, keep_mask, layer_norm, linear,
                                         sublayer)
 from asltpu_torch.ops.attention import attention
+from asltpu_torch.ops.window_attention_kernels import (WindowBias, region_mask,
+                                                       relative_position_index, table_rows)
 
 WINDOW_SPAN = "swin.window_attn"
 SHIFTED_SPAN = "swin.shifted_attn"
 MERGE_SPAN = "swin.merge"
 LN_EPS = 1e-5
-# What the shifted windows add between tokens of two regions of the rolled grid.
-MASK_FILL = -100.0
 
 Size = Tuple[int, int, int]
 
@@ -83,13 +86,14 @@ Size = Tuple[int, int, int]
 class Geometry(NamedTuple):
     """What a block's window sub-layer needs of its stage: the window and
     shift clipped to the stage, the flat relative-position index [N·N]
-    into the bias table, and the shift mask [nW, N, N] (None where the
-    block is not shifted)."""
+    into the bias table, the shift mask [nW, N, N] and the regions [nW, N]
+    (int32) it is made of (both None where the block is not shifted)."""
 
     window: Size
     shift: Size
     index: torch.Tensor
     mask: Optional[torch.Tensor]
+    regions: Optional[torch.Tensor]
 
 
 def clip_window(size: Sequence[int], window: Sequence[int],
@@ -98,17 +102,6 @@ def clip_window(size: Sequence[int], window: Sequence[int],
     window is the axis and the shift 0."""
     clipped = [(n, 0) if n <= k else (k, s) for n, k, s in zip(size, window, shift)]
     return tuple(k for k, _ in clipped), tuple(s for _, s in clipped)
-
-
-def relative_position_index(window: Sequence[int], device) -> torch.Tensor:
-    """[N, N] row of the bias table for each pair of a window's N tokens
-    (d, h, w order): the offset along each axis, shifted to be
-    non-negative, in mixed radix (2Wh−1)(2Ww−1), (2Ww−1), 1."""
-    coords = torch.stack(torch.meshgrid(*(torch.arange(k, device=device) for k in window),
-                                        indexing="ij")).flatten(1)
-    rel = coords[:, :, None] - coords[:, None, :]
-    radix = ((2 * window[1] - 1) * (2 * window[2] - 1), 2 * window[2] - 1, 1)
-    return sum((rel[i] + window[i] - 1) * radix[i] for i in range(3))
 
 
 def window_partition(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
@@ -127,21 +120,28 @@ def window_reverse(windows: torch.Tensor, window: Sequence[int], b: int,
     return x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, d, h, w, -1)
 
 
-def shift_mask(size: Sequence[int], window: Sequence[int], shift: Sequence[int], device,
-               dtype: torch.dtype) -> torch.Tensor:
-    """``compute_mask`` over a padded stage of ``size``: [nW, N, N], 0
-    between two tokens of a window that lie in one region of the rolled
-    grid and :data:`MASK_FILL` between two that do not. Along an axis
-    shifted by s the regions are [0, n − k), [n − k, n − s) and [n − s, n);
-    an unshifted axis is one region. Adds one to ``shift_mask.builds``."""
+def shift_regions(size: Sequence[int], window: Sequence[int], shift: Sequence[int],
+                  device) -> torch.Tensor:
+    """``compute_mask``'s labels over a padded stage of ``size``, window by
+    window: [nW, N] int32, the region of the rolled grid each token lies in.
+    Along an axis shifted by s the regions are [0, n − k), [n − k, n − s)
+    and [n − s, n); an unshifted axis is one region."""
     labels = []
     for n, k, s in zip(size, window, shift):
         pos = torch.arange(n, device=device)
         labels.append((pos >= n - k).long() + (pos >= n - s).long() if s else pos * 0)
     region = labels[0][:, None, None] * 9 + labels[1][None, :, None] * 3 + labels[2]
-    win = window_partition(region[None, ..., None], window)[..., 0]
+    return window_partition(region[None, ..., None], window)[..., 0].to(torch.int32)
+
+
+def shift_mask(size: Sequence[int], window: Sequence[int], shift: Sequence[int], device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``compute_mask`` over a padded stage of ``size``: [nW, N, N], 0
+    between two tokens of a window that lie in one region of the rolled
+    grid (:func:`shift_regions`) and −100 between two that do not. Adds one
+    to ``shift_mask.builds``."""
     shift_mask.builds += 1
-    return ((win[:, None, :] != win[:, :, None]) * MASK_FILL).to(dtype)
+    return region_mask(shift_regions(size, window, shift, device), dtype)
 
 
 shift_mask.builds = 0
@@ -173,22 +173,21 @@ class WindowAttention3D(nn.Module):
     def __init__(self, dim: int, window_size: Size, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        rows = math.prod(2 * k - 1 for k in window_size)
-        self.relative_position_bias_table = nn.Parameter(torch.zeros(rows, num_heads))
+        self.window_size = tuple(window_size)
+        self.relative_position_bias_table = nn.Parameter(torch.zeros(table_rows(window_size),
+                                                                     num_heads))
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, index: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                regions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Windows [B·nW, N, C] → [B·nW, N, C] in the dtype of ``x``: the bias
-        gathered by ``index`` [N·N], plus ``mask`` [nW, N, N] where given."""
-        n = x.shape[1]
-        # Gathered in the table's dtype (fp32), so that the gradient's sum
-        # over the ~N²/rows pairs that share a row is taken in fp32 too.
-        bias = self.relative_position_bias_table[index].view(n, n, -1).permute(2, 0, 1)
-        bias = cast(bias, x.dtype).unsqueeze(0)
-        if mask is not None:
-            bias = bias + mask.unsqueeze(1)
+        read from the table by ``index`` [N·N] (the first N positions of the
+        window's), plus ``mask`` [nW, N, N] of ``regions`` [nW, N] where
+        given."""
+        bias = WindowBias(self.relative_position_bias_table, self.window_size, index, regions,
+                          mask)
         return linear(attention(linear(x, self.qkv), self.num_heads, bias), self.proj)
 
 
@@ -206,7 +205,7 @@ def window_attention(attn: WindowAttention3D, x: torch.Tensor, geo: Geometry) ->
         x = torch.roll(x, [-s for s in geo.shift], (1, 2, 3))
     windows = window_partition(x, geo.window)
     window_attention.windows += windows.shape[0]
-    y = window_reverse(attn(windows, geo.index, geo.mask), geo.window, b, size)
+    y = window_reverse(attn(windows, geo.index, geo.mask, geo.regions), geo.window, b, size)
     if geo.mask is not None:
         y = torch.roll(y, list(geo.shift), (1, 2, 3))
     return y[:, :d, :h, :w] if any(pads) else y
@@ -358,9 +357,12 @@ class VideoSwin(nn.Module):
             n = math.prod(window)
             index = relative_position_index(self.window_size, device)[:n, :n].reshape(-1)
             padded = [-(-s // k) * k for s, k in zip(size, window)]
-            mask = shift_mask(padded, window, shift, device, dtype) if any(shift) else None
-            self._geometry[key] = (Geometry(window, (0, 0, 0), index, None),
-                                   Geometry(window, shift, index, mask))
+            mask = regions = None
+            if any(shift):
+                mask = shift_mask(padded, window, shift, device, dtype)
+                regions = shift_regions(padded, window, shift, device)
+            self._geometry[key] = (Geometry(window, (0, 0, 0), index, None, None),
+                                   Geometry(window, shift, index, mask, regions))
         return self._geometry[key]
 
     def forward(self, clip: torch.Tensor, train: bool = False,

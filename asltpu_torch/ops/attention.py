@@ -17,8 +17,25 @@ Without a bias:
   :func:`fused_attention` on the card and :func:`plain_attention` on the
   CPU.
 
-With an additive bias [W, H, L, L] (W the windows of one group, or 1),
-broadcast over the N = G·W sequences of the projection, which come
+With a bias by index, a
+:class:`~asltpu_torch.ops.window_attention_kernels.WindowBias` (Video
+Swin's window sub-layers: the relative-position table, the window whose
+index reads it, and the shift regions of a clip's windows):
+
+- The window op
+  (:func:`asltpu_torch.ops.window_attention_kernels.window_attention_kernel`)
+  on a CUDA tensor whose shape and dtype its kernels take
+  (:func:`~asltpu_torch.ops.window_attention_kernels.kernel_takes`: bf16
+  heads of 32, 1 to 448 tokens, a table of at most 4096 rows). It reads
+  the table by index and the regions, never a materialised bias, and
+  returns the table's gradient itself.
+- Otherwise the bias materialised
+  (:func:`~asltpu_torch.ops.window_attention_kernels.dense_bias`: the
+  table's gather cast to the projection's dtype plus the −100 mask), taken
+  as a dense bias below.
+
+With a dense additive bias [W, H, L, L] (W the windows of one group, or
+1), broadcast over the N = G·W sequences of the projection, which come
 group-major (Video Swin: a clip's windows in a row): q, k and v as the same
 views, then :func:`biased_attention` on the card and :func:`plain_attention`
 with the bias on the CPU. The bias takes a gradient (the relative-position
@@ -54,12 +71,13 @@ dropout."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from asltpu_torch.ops import window_attention_kernels as windowed
 from asltpu_torch.ops.short_attention_kernels import MAX_LEN, kernel_takes, short_attention
 
 # The backends that keep the weights on chip, in the order tried.
@@ -139,15 +157,24 @@ def per_sequence(bias: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def attention(qkv: torch.Tensor, heads: int,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Union[None, torch.Tensor, windowed.WindowBias] = None) -> torch.Tensor:
     """Attention of each of ``heads`` heads over the sequences of the packed
     projection ``qkv`` [N, L, 3·d] (columns q; k; v) → [N, L, d], the
     heads side by side, on the kernel the module docstring names; with
-    ``bias`` [W or 1, heads, L, L] (the dtype of ``qkv``) added to the
-    scaled scores, broadcast over N group-major sequences."""
+    ``bias`` added to the scaled scores: a ``WindowBias`` over N windows,
+    clip-major, or a dense [W or 1, heads, L, L] (the dtype of ``qkv``)
+    broadcast over N group-major sequences."""
     n, length, width = qkv.shape
     d = width // 3
     head_dim = d // heads
+    if isinstance(bias, windowed.WindowBias):
+        table = bias.table
+        if qkv.is_cuda and windowed.kernel_takes(qkv.dtype, head_dim, length, table.shape[0]):
+            # A model cast for inference holds its table in the compute dtype.
+            table = table if table.dtype == torch.float32 else table.float()
+            return windowed.window_attention_kernel(qkv, heads, table, bias.window,
+                                                    bias.regions)
+        bias = windowed.dense_bias(bias, length, qkv.dtype)
     if bias is None:
         # On the CPU the op runs its plain version, which takes any dtype and head.
         short = kernel_takes(qkv.dtype, head_dim, length) if qkv.is_cuda else length <= MAX_LEN

@@ -259,6 +259,22 @@ phase printing one JSON line:
    version's time, and as ``library_ms`` PyTorch's fused attention (cuDNN
    first) on q, k, v views of the same projection with autograd's backward
    to ``qkv``, the path the kernels replaced, timed only as a yardstick.
+23. window_attention (run after short_attention) — the window attention
+   kernels (``asltpu_torch/csrc/window_attention.cu``, the op
+   ``asltpu_torch::window_attention`` and its backward) at a shifted layer
+   of Video Swin-B's third stage at batch 8 (64 windows × 16 heads × 392
+   tokens) and of its first (1024 × 4), bf16 with the table in fp32: the
+   output, the gradient of ``qkv`` (within 2^-8 of each tensor's largest
+   value: each rounded once to bf16) and the table's (2^-8: fp32 sums in
+   the atomics' order) against
+   the plain version in fp32 on the same inputs; forward and backward
+   times by CUDA events in turns (library, kernel, kernel, library) beside
+   the matmuls' bound at 989 TFLOP/s, the plain version's time, and as
+   ``library_ms`` the path the kernels replaced, timed only as a
+   yardstick: the table gathered, cast to bf16, plus the mask, repeated
+   over the clips and padded, PyTorch's memory-efficient attention, and
+   autograd's backward to ``qkv`` and the table (the bias gradient's sum
+   over the windows and its scatter).
 
 The kernels' launch counts are read per path: each lane (and the fused
 path) sets them to 0 just before its ``predict`` and reads them just after;
@@ -286,6 +302,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import sys
 import tempfile
@@ -376,6 +393,10 @@ TSF_BATCH, TSF_BLOCKS = 8, 12
 # Its temporal attention a layer: 8 · 784 sequences of 16 tokens, 12 heads
 # of 64 (phase short_attention).
 SHORT_SHAPE, SHORT_HEADS, SHORT_REPS = (TSF_BATCH * 784, 16, 3 * 768), 12, 10
+# Video Swin-B's shifted window layers at batch 8 (phase window_attention):
+# (name, stage size, heads), each window 8×7×7 = 392 tokens, heads of 32.
+WINDOW_LAYERS = [("stage3", (16, 14, 14), 16), ("stage1", (16, 56, 56), 4)]
+WINDOW_BATCH, WINDOW_REPS = 8, 10
 POSE_BATCH = 64  # the JAX bench's pose batch (asltpu/benchmark.py:1299)
 # fp32 logits, card vs CPU, full width at batch 64: 1.04e-7 with the LSTM
 # in fp32, 1.19e-4 with TF32 on inside it (NVIDIA H100 80GB HBM3, 700 W).
@@ -2236,6 +2257,94 @@ def phase_short_attention():
     return row
 
 
+def phase_window_attention():
+    """The window attention kernels at two of Video Swin-B's shifted layers
+    (module docstring, phase 23): checked against the plain version and
+    timed beside the path they replaced. Returns the summary, a row a
+    layer."""
+    from asltpu_torch.models import video_swin as vs
+    from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import window_attention_kernels as wk
+
+    dev = torch.device("cuda", 0)
+    full = (8, 7, 7)
+    rows = {}
+    for name, size, h in WINDOW_LAYERS:
+        window, shift = vs.clip_window(size, full, tuple(k // 2 for k in full))
+        regions = vs.shift_regions(size, window, shift, dev)
+        n, length = WINDOW_BATCH * regions.shape[0], math.prod(window)
+        gen = torch.Generator(dev).manual_seed(SEED + 60)
+        qkv = torch.randn((n, length, 3 * 32 * h), generator=gen, device=dev).bfloat16()
+        table = torch.randn((wk.table_rows(full), h), generator=gen, device=dev)
+        grad = torch.randn((n, length, 32 * h), generator=gen, device=dev).bfloat16()
+        out, rest, lse = torch.ops.asltpu_torch.window_attention(qkv, h, table, list(full),
+                                                                 regions)
+        grad_qkv, grad_table = wk.window_attention_kernel_backward(grad, qkv, out, rest, lse, h,
+                                                                   table, full, regions)
+        torch.cuda.synchronize()
+        q32 = qkv.float()
+        want, _, want_lse = wk.window_attention_plain(q32, h, table, full, regions)
+        want_qkv, want_table = wk.window_attention_backward_plain(
+            grad.float(), q32, out.float(), rest.float(), lse, h, table, full, regions)
+        errs = {key: float((got.float() - w).abs().max()) / float(w.abs().max())
+                for key, got, w in (("out", out, want), ("grad_qkv", grad_qkv, want_qkv),
+                                    ("grad_table", grad_table, want_table))}
+        tols = {"out": 2 ** -8, "grad_qkv": 2 ** -8, "grad_table": 2 ** -8}
+        row = {"windows": n, "heads": h, "tokens": length, "dtype": "bfloat16",
+               "max_err_rel_to_max": errs, "tolerance": tols}
+        del q32, want, want_lse, want_qkv, want_table
+        if any(errs[k] > tols[k] for k in errs):
+            raise AssertionError(f"window_attention {name} disagrees with its plain version: "
+                                 f"{row}")
+        index = wk.relative_position_index(full, dev)[:length, :length].reshape(-1)
+        mask = wk.region_mask(regions, torch.bfloat16)
+
+        def library_forward(x, t):
+            bias = wk.dense_bias(wk.WindowBias(t, full, index, regions, mask), length,
+                                 torch.bfloat16)
+            return att.attention(x, h, bias)
+
+        leaf, table_leaf = qkv.detach().requires_grad_(), table.detach().requires_grad_()
+        library_out = library_forward(leaf, table_leaf)
+        fns = {
+            "fwd": lambda: torch.ops.asltpu_torch.window_attention(qkv, h, table, list(full),
+                                                                   regions),
+            "bwd": lambda: wk.window_attention_kernel_backward(grad, qkv, out, rest, lse, h,
+                                                               table, full, regions),
+            "library_fwd": lambda: library_forward(qkv, table),
+            "library_bwd": lambda: torch.autograd.grad(library_out, (leaf, table_leaf), grad,
+                                                       retain_graph=True),
+            "plain_fwd": lambda: wk.window_attention_plain(qkv, h, table, full, regions),
+            "plain_bwd": lambda: wk.window_attention_backward_plain(grad, qkv, out, rest, lse,
+                                                                    h, table, full, regions),
+        }
+        ms = {}
+        for key in ("library_fwd", "fwd", "fwd", "library_fwd", "library_bwd", "bwd", "bwd",
+                    "library_bwd", "plain_fwd", "plain_bwd"):
+            ms.setdefault(key, []).append(time_ms(fns[key], WINDOW_REPS))
+        del library_out, leaf, table_leaf
+        # q·kᵀ and P·v forward; backward 2.5 times (S and dP again, dv, dq, dk).
+        flops_fwd = 2 * 2 * n * h * length * length * 32
+        flops_bwd = flops_fwd * 5 // 2
+        row.update({
+            "ms_fwd": min(ms["fwd"]), "ms_bwd": min(ms["bwd"]),
+            "library_ms_fwd": min(ms["library_fwd"]), "library_ms_bwd": min(ms["library_bwd"]),
+            "plain_ms_fwd": ms["plain_fwd"][0], "plain_ms_bwd": ms["plain_bwd"][0],
+            "ms_runs": ms, "flops_fwd": flops_fwd, "flops_bwd": flops_bwd,
+            "bound_ms_fwd": flops_fwd / PEAK_BF16_FLOP_PER_S * 1e3,
+            "bound_ms_bwd": flops_bwd / PEAK_BF16_FLOP_PER_S * 1e3,
+            "library": "table gathered, cast, + mask, repeated over the clips and padded; "
+                       "memory-efficient SDPA; autograd's backward to qkv and the table"})
+        row["share_of_bound"] = ((row["bound_ms_fwd"] + row["bound_ms_bwd"])
+                                 / (row["ms_fwd"] + row["ms_bwd"]))
+        rows[name] = row
+        del qkv, table, grad, out, rest, lse, grad_qkv, grad_table
+        torch.cuda.empty_cache()
+    emit({"phase": "window_attention", "layers": rows,
+          "peaks": {"bf16_flop_per_s": PEAK_BF16_FLOP_PER_S, "source": "H100 SXM data sheet"}})
+    return rows
+
+
 def phase_bench():
     """The port's bench in this process, over its cells, with a short
     stream and ``--trace``; every video cell's rgb or yuv420 kernel must have
@@ -3444,6 +3553,7 @@ def _run() -> int:
     tsf_rgb, short_by_path = phase_timesformer()
     train.update(tsf_rgb)
     short = phase_short_attention()
+    windowed = phase_window_attention()
     pools_by_path["i3d/predict"] = [i3d["max_pool3d_same"], i3d["max_pool3d_same_backward"]]
     rgb_by_path = {"mobilenet_gru/rgb": rgb["preprocess_rgb"],
                    "resnet_transformer/rgb": resnet["preprocess_rgb"],
@@ -3526,6 +3636,20 @@ def _run() -> int:
         "per": "one TimeSformer-HR temporal layer at batch 8, forward and backward "
                "(phase short_attention)",
     })
+    for layer, row in windowed.items():
+        kernels.append({
+            "name": f"window_attention/{layer}", "route": "cuda",
+            "source": "asltpu_torch/csrc/window_attention.cu", "replaces": None,
+            "max_err_rel_to_max": row["max_err_rel_to_max"],
+            "ms": row["ms_fwd"] + row["ms_bwd"],
+            "plain_ms": row["plain_ms_fwd"] + row["plain_ms_bwd"],
+            "bound_ms": row["bound_ms_fwd"] + row["bound_ms_bwd"], "bound_by": "operations",
+            "library_ms": row["library_ms_fwd"] + row["library_ms_bwd"],
+            "share_of_bound": row["share_of_bound"],
+            "per": f"one shifted Video Swin-B {layer} layer at batch 8 ({row['windows']} "
+                   f"windows x {row['heads']} heads), forward and backward "
+                   "(phase window_attention)",
+        })
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     # The serving timings (phase serve), each on a line of its own.
     for clients, prefix in ((1, "serve_c1_"), (4, "serve_c4_"), (32, "serve_")):

@@ -879,21 +879,23 @@ def _swin_block(card, stage, shifted, seed=14):
 def test_a_full_width_swin_block_in_bf16_follows_fp32(card, stage, shifted):
     """Video Swin-B's first and last stage at their widths (128, heads 4;
     1024, heads 32; windows of 8×7×7, the last stage's shift temporal
-    only), one block of each kind: bf16 on the card (biased attention on
-    the memory-efficient kernel) against the same block in fp32 on the
-    CPU's plain path, on the same input. The branch (output − input)
-    rounds its operands to bf16 at each of its ~6 products and the bias to
-    bf16 (2^-8 relative each), so it lies within 2^-5 of its own largest
-    value; a wrong bias, mask or window order misses by the branch's
-    size."""
+    only), one block of each kind: bf16 on the card (the window attention
+    kernel, reading the table by index and the shift regions) against the
+    same block in fp32 on the CPU's plain path, on the same input. The
+    branch (output − input) rounds its operands to bf16 at each of its ~6
+    products (2^-8 relative each), so it lies within 2^-5 of its own
+    largest value; a wrong bias, mask or window order misses by the
+    branch's size."""
     from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import window_attention_kernels as wk
 
     blk, x, geometry = _swin_block(card, stage, shifted)
     assert (geometry(torch.bfloat16).mask is not None) == shifted
-    before = att.biased_attention.calls
+    before = (wk.window_attention_kernel.launches, att.biased_attention.calls)
     with torch.no_grad():
         got = (blk(x.bfloat16(), geometry(torch.bfloat16)).float() - x.bfloat16().float()).cpu()
-        assert att.biased_attention.calls == before + 1
+        assert (wk.window_attention_kernel.launches, att.biased_attention.calls) == (
+            before[0] + 1, before[1])
         x = x.cpu()
         want = blk.cpu()(x, _on_cpu(geometry(torch.float32))) - x
     assert float((got - want).abs().max()) <= 2 ** -5 * float(want.abs().max())
@@ -917,7 +919,8 @@ def _on_cpu(geo):
     from asltpu_torch.models import video_swin as vs
 
     return vs.Geometry(geo.window, geo.shift, geo.index.cpu(),
-                       None if geo.mask is None else geo.mask.cpu())
+                       None if geo.mask is None else geo.mask.cpu(),
+                       None if geo.regions is None else geo.regions.cpu())
 
 
 @pytest.mark.parametrize("shifted", [False, True], ids=["window", "shifted"])
@@ -925,14 +928,14 @@ def test_the_bias_table_gets_the_plain_paths_gradient(card, shifted):
     """Video Swin-B's third stage (512 wide, 16 heads of 32, 16 × 14² tokens,
     8 windows of 392): the window sub-layer's gradient of the
     relative-position table, and of its input, in bf16 on the card's
-    kernel (the bias's gradient summed over the windows and the clips)
-    against the same module in fp32 on the CPU's plain path. bf16 rounds
-    the operands, the bias, P and dS (2^-8 relative each) and the table's
-    gradient once: within 2^-5 of each gradient's largest value; a
-    gradient that missed the mask, the windows' sum or the gather misses
-    by its own size."""
+    window kernels (the table's gradient summed over the windows and the
+    clips inside the backward) against the same module in fp32 on the CPU's
+    plain path. bf16 rounds the operands, P and dS (2^-8 relative each):
+    within 2^-5 of each gradient's largest value; a gradient that missed
+    the mask, the windows' sum or the gather misses by its own size."""
     from asltpu_torch.models import video_swin as vs
     from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import window_attention_kernels as wk
 
     blk, x, geometry = _swin_block(card, 2, shifted)
     grad = torch.randn(x.shape, generator=torch.Generator(card).manual_seed(15), device=card)
@@ -943,9 +946,11 @@ def test_the_bias_table_gets_the_plain_paths_gradient(card, shifted):
         table = module.attn.relative_position_bias_table
         return torch.autograd.grad(y, (table, x), g)
 
-    before = att.biased_attention.calls
+    launches = lambda: (wk.window_attention_kernel.launches,  # noqa: E731
+                        wk.window_attention_kernel_backward.launches, att.biased_attention.calls)
+    before = launches()
     got = grads(blk, x.bfloat16(), geometry(torch.bfloat16), grad.bfloat16())
-    assert att.biased_attention.calls == before + 1
+    assert launches() == (before[0] + 1, before[1] + 1, before[2])
     want = grads(blk.cpu(), x.cpu(), _on_cpu(geometry(torch.float32)), grad.cpu())
     for g, w in zip(got, want):
         assert float(w.abs().max()) > 0
@@ -956,13 +961,15 @@ def test_swin_trains_and_predicts_on_the_card_with_its_geometry_built_once(card)
     """A small Video Swin (width 64, heads of 32, depths (2, 2), window
     4×7×7 over 8 frames of 112²), bf16, through ``build_trainable`` →
     ``make_train_step`` for three steps and ``load_model`` → ``predict``:
-    each forward makes one biased call a block and no fused or plain one;
+    each step launches the window kernel once a block forward and once
+    backward, and makes no biased, fused or plain call;
     the shift mask is built on the first step only; loss and logits are
     finite, and one clip alone (a clip's windows, the whole batch, in the
     shifted blocks' bias) predicts what it does in the batch."""
     from asltpu_torch.config import TrainConfig
     from asltpu_torch.models import video_swin as vs
     from asltpu_torch.ops import attention as att
+    from asltpu_torch.ops import window_attention_kernels as wk
     from asltpu_torch.train import loop
 
     kw = dict(num_classes=7, num_frames=8, embed_dim=64, depths=(2, 2), num_heads=(2, 4),
@@ -975,7 +982,8 @@ def test_swin_trains_and_predicts_on_the_card_with_its_geometry_built_once(card)
     step = loop.make_train_step(tcfg, model.cfg.preprocess)
 
     def counts():
-        return (att.biased_attention.calls, att.fused_attention.calls,
+        return (wk.window_attention_kernel.launches, wk.window_attention_kernel_backward.launches,
+                att.biased_attention.calls, att.fused_attention.calls,
                 att.plain_attention.calls, vs.shift_mask.builds)
 
     seen = [counts()]
@@ -986,13 +994,116 @@ def test_swin_trains_and_predicts_on_the_card_with_its_geometry_built_once(card)
     # Stage 1 (4 × 28²: shifted by (2, 3, 3)) builds one mask; stage 2
     # (4 × 14², shifted too) another; none after.
     assert [tuple(b - a for a, b in zip(seen[k], seen[k + 1])) for k in range(3)] == [
-        (4, 0, 0, 2), (4, 0, 0, 0), (4, 0, 0, 0)]
+        (4, 4, 0, 0, 0, 2), (4, 4, 0, 0, 0, 0), (4, 4, 0, 0, 0, 0)]
     served = api.load_model("video_swin", seed=3, **kw)
     _, logits = api.predict(served, frames)
     assert np.isfinite(logits).all() and logits.shape == (2, 7)
     _, one = api.predict(served, frames[1])
     # bf16: another batch size may tile the products otherwise.
     np.testing.assert_allclose(one, logits[1], rtol=0, atol=0.05 * float(np.abs(logits).max()))
+
+
+def _window_case(card, stage, shifted, batch, seed=30):
+    """Video Swin-B's ``stage`` at batch ``batch``: the packed projection of
+    its windows of 8×7×7 (bf16), a bias table of the stage's heads (fp32,
+    N(0, 1), as large as the scores so that a wrong gather shows), the
+    stage's shift regions where ``shifted``, and an output gradient."""
+    from asltpu_torch.models import video_swin as vs
+
+    heads, side = (4, 8, 16, 32)[stage], 56 >> stage
+    size = (16, side, side)
+    window, shift = vs.clip_window(size, (8, 7, 7), (4, 3, 3))
+    regions = vs.shift_regions(size, window, shift, card) if shifted else None
+    n = batch * 2 * (side // 7) ** 2
+    gen = torch.Generator(card).manual_seed(seed + stage)
+    qkv = torch.randn((n, 392, 3 * 32 * heads), generator=gen, device=card).bfloat16()
+    table = torch.randn((2535, heads), generator=gen, device=card)
+    grad = torch.randn((n, 392, 32 * heads), generator=gen, device=card).bfloat16()
+    return qkv, heads, table, regions, grad
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("shifted", [False, True], ids=["window", "shifted"])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_window_attention_kernels_match_plain(card, stage, shifted, batch):
+    """The window kernels at each of Video Swin-B's stages (heads 4, 8, 16,
+    32 of 32; 392 tokens; the last stage shifted in time only) against
+    their plain version in fp32 on the same bf16 inputs: the output and its
+    log-sum-exp; then the backward against the plain backward given the
+    kernel's output and log-sum-exp, ``qkv``'s gradient and the table's.
+    The kernels carry P and dS into their products as bf16 pairs (16
+    bits) and round each result once to bf16 (2^-9 relative), so the
+    output and ``qkv``'s gradient lie within 2^-8 of their largest value,
+    and the output plus its rest within 2^-12; the table's gradient sums
+    fp32 dS, in an order the atomics change from run to run, and is within
+    2^-8 of its largest. A wrong index, mask, window order or sum misses by
+    the tensor's own size. One launch each way."""
+    from asltpu_torch.ops import window_attention_kernels as wk
+
+    qkv, heads, table, regions, grad = _window_case(card, stage, shifted, batch)
+    leaf, table_leaf = qkv.clone().requires_grad_(), table.clone().requires_grad_()
+    before = (wk.window_attention_kernel.launches, wk.window_attention_kernel_backward.launches)
+    out, rest, lse = torch.ops.asltpu_torch.window_attention(leaf, heads, table_leaf,
+                                                             [8, 7, 7], regions)
+    got_qkv, got_table = torch.autograd.grad(out, (leaf, table_leaf), grad)
+    torch.cuda.synchronize()
+    assert (wk.window_attention_kernel.launches,
+            wk.window_attention_kernel_backward.launches) == (before[0] + 1, before[1] + 1)
+    q32 = qkv.float()
+    want, want_rest, want_lse = wk.window_attention_plain(q32, heads, table, (8, 7, 7), regions)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    want_qkv, want_table = wk.window_attention_backward_plain(
+        grad.float(), q32, out.detach().float(), rest.detach().float(), lse.detach(), heads,
+        table, (8, 7, 7), regions)
+    for g, w, tol in ((out.float() + rest.float(), want, 2 ** -12), (out, want, 2 ** -8),
+                      (got_qkv, want_qkv, 2 ** -8), (got_table, want_table, 2 ** -8)):
+        assert g.shape == w.shape and g.is_contiguous() and bool(torch.isfinite(g).all())
+        assert float(w.abs().max()) > 0
+        assert float((g.float() - w).abs().max()) <= tol * float(w.abs().max())
+    assert out.dtype == got_qkv.dtype == torch.bfloat16 and got_table.dtype == torch.float32
+
+
+def test_window_attention_backward_writes_qkv_gradient_deterministically(card):
+    """Two backward launches on the same inputs: the same bits of ``qkv``'s
+    gradient (no atomics there); the table's, summed with fp32 atomics,
+    within 2^-16 of its largest value."""
+    from asltpu_torch.ops import window_attention_kernels as wk
+
+    qkv, heads, table, regions, grad = _window_case(card, 2, True, 2)
+    out, rest, lse = torch.ops.asltpu_torch.window_attention(qkv, heads, table, [8, 7, 7],
+                                                             regions)
+    first, second = (wk.window_attention_kernel_backward(grad, qkv, out, rest, lse, heads, table,
+                                                         (8, 7, 7), regions) for _ in range(2))
+    assert torch.equal(first[0].view(torch.int16), second[0].view(torch.int16))
+    assert float((first[1] - second[1]).abs().max()) <= 2 ** -16 * float(first[1].abs().max())
+
+
+def test_window_attention_refuses_on_the_card(card):
+    """Windows of 449 tokens, heads of 64, fp32 and a projection off a
+    16-byte boundary: each direction of the op raises ``ValueError`` on the
+    card before any launch (no fallback), and the counters do not move."""
+    from asltpu_torch.ops import window_attention_kernels as wk
+
+    qkv, heads, table, _, _ = _window_case(card, 3, False, 1)
+    long = torch.zeros((2, 449, 3 * 32 * heads), dtype=torch.bfloat16, device=card)
+    flat = torch.zeros(qkv.numel() + 8, dtype=torch.bfloat16, device=card)
+    cases = [
+        (long, heads, torch.zeros((15 ** 3, heads), device=card), (8, 8, 8)),
+        (qkv, heads // 2, torch.zeros((2535, heads // 2), device=card), (8, 7, 7)),
+        (qkv.float(), heads, table, (8, 7, 7)),
+        (flat[1:qkv.numel() + 1].view(qkv.shape), heads, table, (8, 7, 7)),
+    ]
+    before = (wk.window_attention_kernel.launches, wk.window_attention_kernel_backward.launches)
+    for x, h, t, window in cases:
+        n, length, width = x.shape
+        with pytest.raises(ValueError):
+            wk.window_attention_kernel(x, h, t, window)
+        out = torch.zeros((n, length, width // 3), dtype=torch.bfloat16, device=card)
+        lse = torch.zeros((n, h, length), device=card)
+        with pytest.raises(ValueError):
+            wk.window_attention_kernel_backward(out, x, out, out, lse, h, t, window)
+    assert (wk.window_attention_kernel.launches,
+            wk.window_attention_kernel_backward.launches) == before
 
 
 @pytest.mark.parametrize("length,n", [(785, 16), (16, 784)])
