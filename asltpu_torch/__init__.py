@@ -7,12 +7,13 @@ path:
   - :mod:`asltpu_torch.api`     — ``load_model``, ``load_clip``, ``predict``,
     ``stream_predict``.
   - :mod:`asltpu_torch.config`  — the five configs, field for field, and
-    the port's own ``timesformer`` and ``video_swin``.
+    the port's own ``timesformer``, ``video_swin`` and ``mvit_v2``.
   - :mod:`asltpu_torch.models`  — MobileNetV2 + GRU head (``mobilenet_gru``),
     ResNet-18 + transformer head (``resnet_transformer``), the landmark
     BiLSTM (``pose_bilstm``), I3D (``i3d``), the RGB + landmark
     cross-attention fusion (``two_stream``), TimeSformer-HR
-    (``timesformer``), Video Swin-B (``video_swin``).
+    (``timesformer``), Video Swin-B (``video_swin``), MViTv2-B
+    (``mvit_v2``).
   - :mod:`asltpu_torch.ops`     — preprocess (plain PyTorch and the
     hand-written CUDA kernels of ``csrc/``), the GRU and LSTM layers, I3D's
     stem conv in its plain and space-to-depth forms, fused attention.
@@ -52,6 +53,7 @@ from asltpu_torch.config import (  # noqa: F401
     TwoStreamFusionConfig,
     TimeSformerConfig,
     VideoSwinConfig,
+    MViTv2Config,
     get_config,
     CONFIG_REGISTRY,
 )

@@ -1,15 +1,15 @@
 """Public API: ``load_model``, ``load_clip``, ``predict`` and
 ``stream_predict``. Counterpart of ``asltpu/api.py`` for the five configs:
 ``pose_bilstm``, ``mobilenet_gru``, ``resnet_transformer``, ``i3d`` and
-``two_stream``; and the port's own sixth and seventh, ``timesformer``
-(TimeSformer-HR) and ``video_swin`` (Video Swin-B).
+``two_stream``; and the port's own sixth to eighth, ``timesformer``
+(TimeSformer-HR), ``video_swin`` (Video Swin-B) and ``mvit_v2`` (MViTv2-B).
 
 For the RGB models everything after host decode runs on the device:
 preprocess (a hand-written CUDA kernel on the card), then the per-frame
 backbone over the B·T frames (MobileNetV2 or ResNet-18) and the temporal
 head (GRU or transformer), or I3D's 3D network, TimeSformer's divided
-space–time attention or Video Swin's 3D shifted windows over the whole
-clip.
+space–time attention, Video Swin's 3D shifted windows or MViTv2's pooling
+attention over the whole clip.
 ``pose_bilstm`` takes landmarks [T, 543, 3] instead of frames; it
 normalises them and runs its BiLSTM on the device. ``two_stream`` takes
 both: frames through MobileNetV2, landmarks of the same T, and
@@ -42,6 +42,7 @@ from asltpu_torch.config import (
     I3DConfig,
     MobileNetV2GRUConfig,
     ModelConfig,
+    MViTv2Config,
     PoseBiLSTMConfig,
     PreprocessConfig,
     ResNet18TransformerConfig,
@@ -58,6 +59,7 @@ from asltpu_torch.models.bilstm import PoseBiLSTM
 from asltpu_torch.models.common import cast_for_compute, init_weights
 from asltpu_torch.models.fusion import TwoStreamFusion
 from asltpu_torch.models.i3d import I3D
+from asltpu_torch.models.mvit import MViT
 from asltpu_torch.models.timesformer import TimeSformer
 from asltpu_torch.models.video import MobileNetV2GRU, ResNet18Transformer
 from asltpu_torch.models.video_swin import VideoSwin
@@ -140,6 +142,27 @@ def build_module(cfg: ModelConfig) -> nn.Module:
             dropout=cfg.dropout,
             dtype=cfg.compute_torch_dtype,
         )
+    if isinstance(cfg, MViTv2Config):
+        return MViT(
+            num_classes=cfg.num_classes,
+            num_frames=cfg.num_frames,
+            img_size=cfg.preprocess.crop,
+            patch_kernel=cfg.patch_kernel,
+            patch_stride=cfg.patch_stride,
+            patch_padding=cfg.patch_padding,
+            embed_dim=cfg.embed_dim,
+            depth=cfg.depth,
+            num_heads=cfg.num_heads,
+            dim_mul=cfg.dim_mul,
+            head_mul=cfg.head_mul,
+            pool_q_stride=cfg.pool_q_stride,
+            pool_kvq_kernel=cfg.pool_kvq_kernel,
+            pool_kv_stride_adaptive=cfg.pool_kv_stride_adaptive,
+            mlp_ratio=cfg.mlp_ratio,
+            drop_path_rate=cfg.drop_path_rate,
+            dropout=cfg.dropout,
+            dtype=cfg.compute_torch_dtype,
+        )
     raise ValueError(f"no model for config {type(cfg).__name__}")
 
 
@@ -148,7 +171,7 @@ def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
     besides its norms: the GRU head of ``mobilenet_gru`` (the recurrence
     amplifies low-precision error); the classifiers that read a pooled
     output in fp32 (the transformer head's and the fusion model's ``fc``,
-    I3D's ``logits``, TimeSformer's and Video Swin's ``head``); all of
+    I3D's ``logits``, TimeSformer's, Video Swin's and MViT's ``head``); all of
     ``pose_bilstm``, as the JAX package computes it. The transformers'
     LayerNorms stay fp32 as every norm does."""
     if isinstance(module, PoseBiLSTM):
@@ -159,7 +182,7 @@ def fp32_modules(module: nn.Module) -> Tuple[nn.Module, ...]:
         return (module.logits,)
     if isinstance(module, TwoStreamFusion):
         return (module.fc,)
-    if isinstance(module, (TimeSformer, VideoSwin)):
+    if isinstance(module, (TimeSformer, VideoSwin, MViT)):
         return (module.head,)
     return (module.head.fc,)
 
@@ -250,9 +273,9 @@ def load_model(
     return Model(cfg=cfg, module=module, device=dev)
 
 
-# The families whose modules train: all seven.
+# The families whose modules train: all eight.
 TRAINABLE = (PoseBiLSTMConfig, MobileNetV2GRUConfig, ResNet18TransformerConfig, I3DConfig,
-             TwoStreamFusionConfig, TimeSformerConfig, VideoSwinConfig)
+             TwoStreamFusionConfig, TimeSformerConfig, VideoSwinConfig, MViTv2Config)
 
 
 def build_trainable(name: str, seed: int = 0,

@@ -2,10 +2,11 @@
 
 A field-for-field copy of ``asltpu/config.py`` (the five configs,
 ``PreprocessConfig``, ``TrainConfig`` and ``get_config``), so a config built
-here compares equal, field by field, with the JAX package's, and one family
-two of the port's own, ``timesformer`` (:class:`TimeSformerConfig`) and
-``video_swin`` (:class:`VideoSwinConfig`), which the JAX package does not
-have. Two things differ:
+here compares equal, field by field, with the JAX package's, and three
+families of the port's own, ``timesformer`` (:class:`TimeSformerConfig`),
+``video_swin`` (:class:`VideoSwinConfig`) and ``mvit_v2``
+(:class:`MViTv2Config`), which the JAX package does not have. Two things
+differ:
 
 - ``out_jnp_dtype``/``compute_jnp_dtype`` become
   ``out_torch_dtype``/``compute_torch_dtype``;
@@ -225,6 +226,46 @@ class VideoSwinConfig(ModelConfig):
     preprocess: PreprocessConfig = PreprocessConfig(num_frames=32)
 
 
+# The q stride of each of MViTv2-B's 24 blocks, as SlowFast's
+# ``POOL_Q_STRIDE`` lists them: [block, t, h, w].
+_MVIT_B_POOL_Q_STRIDE = tuple((i, 1, 2, 2) if i in (2, 5, 21) else (i, 1, 1, 1)
+                              for i in range(24))
+
+
+@dataclasses.dataclass(frozen=True)
+class MViTv2Config(ModelConfig):
+    """MViTv2-B, 32×3 (Li et al., CVPR 2022; SlowFast's
+    ``MVITv2_B_32x3.yaml``): pooling attention with a query-dependent
+    decomposed relative-position bias and residual pooling over 32 frames
+    of 224², fine-tuned on WLASL-2000. The port's own family: the JAX
+    package has no counterpart. The lists keep SlowFast's layout:
+    ``dim_mul`` / ``head_mul`` [block, multiplier] (width and heads change
+    inside that block's attention), ``pool_q_stride`` [block, t, h, w] for
+    every block."""
+
+    name: str = "mvit_v2"
+    num_classes: int = 2000  # WLASL-2000
+    num_frames: int = 32
+    patch_kernel: Tuple[int, int, int] = (3, 7, 7)  # (T, H, W)
+    patch_stride: Tuple[int, int, int] = (2, 4, 4)
+    patch_padding: Tuple[int, int, int] = (1, 3, 3)
+    embed_dim: int = 96
+    depth: int = 24
+    num_heads: int = 1
+    dim_mul: Tuple[Tuple[int, float], ...] = ((2, 2.0), (5, 2.0), (21, 2.0))
+    head_mul: Tuple[Tuple[int, float], ...] = ((2, 2.0), (5, 2.0), (21, 2.0))
+    pool_q_stride: Tuple[Tuple[int, int, int, int], ...] = _MVIT_B_POOL_Q_STRIDE
+    pool_kvq_kernel: Tuple[int, int, int] = (3, 3, 3)
+    # The k/v stride of block 0, divided by each q stride as the blocks pass.
+    pool_kv_stride_adaptive: Tuple[int, int, int] = (1, 8, 8)
+    mlp_ratio: int = 4
+    # Stochastic depth, linearly spaced over the blocks from 0 at block 0.
+    drop_path_rate: float = 0.3
+    # Dropout before the classifier (the published TransformerBasicHead's).
+    dropout: float = 0.5
+    preprocess: PreprocessConfig = PreprocessConfig(num_frames=32)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters for the I3D fine-tune path."""
@@ -257,6 +298,7 @@ CONFIG_REGISTRY = {
     "two_stream": TwoStreamFusionConfig,
     "timesformer": TimeSformerConfig,
     "video_swin": VideoSwinConfig,
+    "mvit_v2": MViTv2Config,
 }
 
 

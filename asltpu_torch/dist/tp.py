@@ -114,15 +114,24 @@ def validate_tp_divisibility(num_heads: int, d_model: int, mlp_ratio: int,
         )
 
 
+# The families whose attention :func:`tp_shard_module` places.
+SHARDED = ("resnet_transformer", "two_stream")
+
+
 def validate_config_tp(cfg, model_parallel: int) -> None:
     """:func:`validate_tp_divisibility` for a model config, by the fields it
     has: the heads where it has attention, the MLP width where its MLP is
     sharded (``mlp_ratio``: the transformer head; the fusion blocks' MLPs
-    stay whole). A config without attention has nothing to shard."""
+    stay whole). A config without attention has nothing to shard; one with
+    attention that no placement shards (:data:`SHARDED` lists those that
+    have them) is refused by name."""
     heads = getattr(cfg, "num_heads", None)
-    if heads is not None:
-        validate_tp_divisibility(heads, cfg.d_model, getattr(cfg, "mlp_ratio", 1),
-                                 model_parallel)
+    if heads is None or model_parallel <= 1:
+        return
+    if cfg.name not in SHARDED:
+        raise ValueError(f"tensor parallelism does not shard {cfg.name}: only "
+                         f"{', '.join(SHARDED)} have placements")
+    validate_tp_divisibility(heads, cfg.d_model, getattr(cfg, "mlp_ratio", 1), model_parallel)
 
 
 def _local(t: torch.Tensor, name: str, dim: int, mesh: Mesh) -> torch.Tensor:

@@ -369,12 +369,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     packed q/k/v projection as ``nn.MultiheadAttention``'s (Xavier-uniform,
     zero bias), GRUs and LSTMs U(-1/√H, 1/√H), the transformer's CLS token
     and positions truncated-normal (std 0.02), the fusion model's positions
-    too, and TimeSformer and Video Swin as their references initialise them
+    too, and TimeSformer, Video Swin and MViT as their references
+    initialise them
     (:meth:`~asltpu_torch.models.timesformer.TimeSformer.reset_parameters`,
-    :meth:`~asltpu_torch.models.video_swin.VideoSwin.reset_parameters`)."""
+    :meth:`~asltpu_torch.models.video_swin.VideoSwin.reset_parameters`,
+    :meth:`~asltpu_torch.models.mvit.MViT.reset_parameters`)."""
     # These modules import this one.
     from asltpu_torch.models.fusion import TwoStreamFusion
     from asltpu_torch.models.i3d import Logits
+    from asltpu_torch.models.mvit import MViT
     from asltpu_torch.models.temporal import TransformerHead
     from asltpu_torch.models.timesformer import TimeSformer
     from asltpu_torch.models.video_swin import VideoSwin
@@ -382,7 +385,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
     with torch.no_grad():
         # The transformers' parameters are drawn once, by their reset_parameters.
-        own = {s for t in module.modules() if isinstance(t, (TimeSformer, VideoSwin))
+        own = {s for t in module.modules() if isinstance(t, (TimeSformer, VideoSwin, MViT))
                for s in t.modules()}
         for m in module.modules():
             if m in own:
@@ -410,7 +413,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         # I3D's classifier is a 1×1×1 conv, drawn above as one; it is a dense
         # layer over 1024 features.
         for m in module.modules():
-            if isinstance(m, (Logits, TimeSformer, VideoSwin)):
+            if isinstance(m, (Logits, TimeSformer, VideoSwin, MViT)):
                 m.reset_parameters(generator)
 
 

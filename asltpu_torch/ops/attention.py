@@ -1,8 +1,9 @@
 """Softmax attention over heads, ``softmax(q·kᵀ / √D + bias)·v``, for
-TimeSformer's temporal and spatial sub-layers and Video Swin's window
-sub-layers. :func:`attention` is where the port chooses the kernel, from
-what it sees of the packed q/k/v projection (its device, dtype, head size
-and sequence length) and of the bias.
+TimeSformer's temporal and spatial sub-layers, Video Swin's window
+sub-layers and MViTv2's pooling attention. :func:`attention` (a packed
+q/k/v projection) and :func:`pooled_attention` (q, k and v apart) are
+where the port chooses the kernel, from what they see of the inputs (their
+device, dtype, head size and sequence length) and of the bias.
 
 Without a bias:
 
@@ -37,9 +38,17 @@ index reads it, and the shift regions of a clip's windows):
 With a dense additive bias [W, H, L, L] (W the windows of one group, or
 1), broadcast over the N = G·W sequences of the projection, which come
 group-major (Video Swin: a clip's windows in a row): q, k and v as the same
-views, then :func:`biased_attention` on the card and :func:`plain_attention`
-with the bias on the CPU. The bias takes a gradient (the relative-position
-table's) wherever it requires one.
+views, laid out by :func:`per_sequence`, then :func:`pooled_attention`. The
+bias takes a gradient (the relative-position table's) wherever it requires
+one.
+
+:func:`pooled_attention` takes q [N, H, Lq, D] and k, v [N, H, Lk, D] apart,
+Lq and Lk free (MViTv2: k and v pooled shorter than q, or longer), with a
+dense bias [N, H, Lq, Lk] of each sequence's own (MViTv2's depends on q)
+laid out in :func:`bias_storage`: :func:`biased_attention` on the card and
+:func:`plain_attention` with the bias on the CPU; without a bias
+:func:`fused_attention` on the card and :func:`plain_attention` on the
+CPU.
 
 :func:`fused_attention` is PyTorch's ``scaled_dot_product_attention`` held
 to the backends that never write the [q, k] weights to memory
@@ -156,6 +165,33 @@ def per_sequence(bias: torch.Tensor, n: int) -> torch.Tensor:
     return full[..., :length] if pad else full
 
 
+def bias_storage(n: int, heads: int, lq: int, lk: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """An uninitialised bias [n, heads, lq, lk] laid out as
+    :func:`biased_attention` reads it without a copy of its own: each row
+    padded to a multiple of :data:`BIAS_ALIGN` elements in storage (the
+    padding never read)."""
+    width = lk + (-lk % BIAS_ALIGN)
+    return torch.empty((n, heads, lq, width), dtype=dtype, device=device)[..., :lk]
+
+
+def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of ``q`` [N, H, Lq, D] over ``k``, ``v`` [N, H, Lk, D] →
+    [N, H, Lq, D], with ``bias`` (one that broadcasts to [N, H, Lq, Lk],
+    each row at a multiple of :data:`BIAS_ALIGN` elements in storage, as
+    :func:`bias_storage` and :func:`per_sequence` lay it out) added to the
+    scaled scores, on the kernel the module docstring names."""
+    if bias is None:
+        return fused_attention(q, k, v) if q.is_cuda else plain_attention(q, k, v)
+    if not q.is_cuda:
+        return plain_attention(q, k, v, bias)
+    if any(s % BIAS_ALIGN for s in bias.stride()[:-1] if s) or bias.stride(-1) != 1:
+        raise ValueError(f"a bias of strides {bias.stride()} would be copied to align its "
+                         f"rows to {BIAS_ALIGN} elements: lay it out with bias_storage")
+    return biased_attention(q, k, v, bias)
+
+
 def attention(qkv: torch.Tensor, heads: int,
               bias: Union[None, torch.Tensor, windowed.WindowBias] = None) -> torch.Tensor:
     """Attention of each of ``heads`` heads over the sequences of the packed
@@ -182,10 +218,5 @@ def attention(qkv: torch.Tensor, heads: int,
             return short_attention(qkv, heads)
     packed = qkv.view(n, length, 3, heads, head_dim)
     q, k, v = (packed[:, :, i].transpose(1, 2) for i in range(3))
-    if bias is None:
-        out = fused_attention(q, k, v) if qkv.is_cuda else plain_attention(q, k, v)
-    elif qkv.is_cuda:
-        out = biased_attention(q, k, v, per_sequence(bias, n))
-    else:
-        out = plain_attention(q, k, v, per_sequence(bias, n))
+    out = pooled_attention(q, k, v, None if bias is None else per_sequence(bias, n))
     return out.transpose(1, 2).reshape(n, length, d)

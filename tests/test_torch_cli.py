@@ -287,7 +287,9 @@ def test_cli_train_model_parallel_is_checked_before_any_data(tmp_path, monkeypat
 def test_cli_model_parallel_guard_reads_the_fields_each_config_has(tmp_path):
     """The two_stream config has heads and no ``mlp_ratio`` (its MLPs stay
     whole): the guard checks its heads and reads no ``mlp_ratio``, which the
-    JAX CLI's guard does (``asltpu/cli/main.py:342-344``)."""
+    JAX CLI's guard does (``asltpu/cli/main.py:342-344``). The port's own
+    transformers have heads and no ``d_model`` and no placement: each is
+    refused by name, not with an ``AttributeError``."""
     import asltpu.config as jconfig
 
     assert not hasattr(jconfig.TwoStreamFusionConfig(), "mlp_ratio")
@@ -297,6 +299,11 @@ def test_cli_model_parallel_guard_reads_the_fields_each_config_has(tmp_path):
         main(argv + ["--model-parallel", "2"])
     with pytest.raises(SystemExit, match="num_heads=8 not divisible by model_parallel=3"):
         main(argv + ["--model-parallel", "3"])
+    for name in ("timesformer", "video_swin", "mvit_v2"):
+        argv[argv.index("--model") + 1] = name
+        with pytest.raises(SystemExit, match=f"error: --model-parallel: tensor parallelism "
+                                             f"does not shard {name}:"):
+            main(argv + ["--model-parallel", "2"])
 
 
 def test_cli_train_model_parallel_under_torchrun(tmp_path, tiny_wlasl_module):

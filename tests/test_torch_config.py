@@ -30,10 +30,12 @@ def test_configs_match_field_by_field(name, overrides):
 
 
 def test_registry_and_train_config_match():
-    """Every JAX family is the port's too; the port has two of its own,
-    ``timesformer`` and ``video_swin``, which the JAX package does not."""
+    """Every JAX family is the port's too; the port has three of its own,
+    ``timesformer``, ``video_swin`` and ``mvit_v2``, which the JAX package
+    does not."""
     assert set(jcfg.CONFIG_REGISTRY) <= set(tcfg.CONFIG_REGISTRY)
-    assert set(tcfg.CONFIG_REGISTRY) - set(jcfg.CONFIG_REGISTRY) == {"timesformer", "video_swin"}
+    assert set(tcfg.CONFIG_REGISTRY) - set(jcfg.CONFIG_REGISTRY) == {"timesformer", "video_swin",
+                                                                      "mvit_v2"}
     assert dataclasses.asdict(tcfg.TrainConfig()) == dataclasses.asdict(
         jcfg.TrainConfig())
     assert (tcfg.IMAGENET_MEAN, tcfg.IMAGENET_STD) == (

@@ -1140,3 +1140,86 @@ def test_attention_without_a_bias_is_the_unbiased_path_bit_for_bit(card, length,
         assert torch.equal(got[1], want[1])
     else:
         assert float((got[1] - want[1]).abs().max()) <= 2 ** -7 * float(want[1].abs().max())
+
+
+# A small MViTv2 (widths 16 and 32, heads of 16, a q-strided transition, k/v
+# at the adaptive stride (1, 2, 2)) over 4 frames of 32² staged at 40².
+MVIT_SMALL = dict(num_classes=10, num_frames=4, embed_dim=16, depth=3, dim_mul=((1, 2.0),),
+                  head_mul=((1, 2.0),), pool_q_stride=((0, 1, 1, 1), (1, 1, 2, 2), (2, 1, 1, 1)),
+                  pool_kv_stride_adaptive=(1, 2, 2), drop_path_rate=0.0, dropout=0.0)
+
+
+def _mvit_small(dtype):
+    pp = dict(num_frames=4, staging_size=(40, 40), resize_short=40, crop=32, out_dtype=dtype)
+    return dict(MVIT_SMALL, compute_dtype=dtype, preprocess=pp)
+
+
+def test_a_small_mvit_step_on_the_card_follows_the_reference(card):
+    """One ``make_train_step`` step of the small MViTv2 in fp32 on the card
+    (the memory-efficient kernel with the bias and its gradient) against
+    the reference's step in fp32 on the card from the same weights: the
+    loss within 1e-4 and every leaf's gradient within 1e-3 of its norm
+    (other summation orders in the kernel; norm_k's bias, whose exact
+    gradient is 0, left out), the tables' and pools' among them; and the
+    same step in bf16 lands within bf16's reach of the loss."""
+    from asltpu_torch.config import TrainConfig
+    from asltpu_torch.train import loop
+    from perfbench.core import weights
+    from perfbench.reference import mvit as ref
+
+    kw = _mvit_small("float32")
+    cfg = dict(MVIT_SMALL, patch_kernel=(3, 7, 7), patch_stride=(2, 4, 4),
+               patch_padding=(1, 3, 3), num_heads=1, pool_kvq_kernel=(3, 3, 3), mlp_ratio=4,
+               preprocess=dict(kw["preprocess"], staging_size=[40, 40], mean=[0.485, 0.456, 0.406],
+                               std=[0.229, 0.224, 0.225]))
+    p = weights.make_params(ref.param_specs(cfg), 17, card)
+    x = _frames(18, (4, 4, 40, 40, 3), card)
+    labels = torch.tensor([1, 7, 3, 3], device=card)
+    train = dict(learning_rate=1e-3, warmup_steps=1, num_steps=10, weight_decay=1e-4,
+                 label_smoothing=0.1, grad_clip_norm=1.0)
+    trainer = ref.Trainer(p, cfg, train, 19)
+    want_loss, want_grads = trainer.step(x, labels)
+    losses = {}
+    for dtype in ("float32", "bfloat16"):
+        model = api.build_trainable("mvit_v2", device=card, **_mvit_small(dtype))
+        weights.load_into(model.module, p)
+        tcfg = TrainConfig(batch_size=4, **train)
+        state = loop.create_train_state(model.module, tcfg, seed=19)
+        _, metrics = loop.make_train_step(tcfg, model.cfg.preprocess)(state, x, labels)
+        losses[dtype] = float(metrics["loss"])
+        if dtype == "float32":
+            named = dict(model.module.named_parameters())
+            for name, g in want_grads.items():
+                if name.endswith("norm_k.bias"):
+                    continue
+                err = float((named[name].grad - g).norm())
+                assert err <= 1e-3 * float(g.norm()) + 1e-7, name
+    assert losses["float32"] == pytest.approx(want_loss, rel=1e-4)
+    assert losses["bfloat16"] == pytest.approx(want_loss, rel=2e-2)
+
+
+def test_mvit_counts_its_calls_and_bias_on_the_card(card):
+    """A bf16 forward of the small MViTv2 through ``load_model`` →
+    ``predict``: one biased call a block and no fused or plain one, three
+    pools a block, the bias's storage with its rows padded to 16 keys
+    (bf16 [B, h, Lq, Lk]: [2, 1, 129, 33 → 48], [2, 2, 33, 129 → 144],
+    [2, 2, 33, 33 → 48]); and a bias laid out otherwise is refused
+    rather than copied."""
+    from asltpu_torch.models import mvit
+    from asltpu_torch.ops import attention as att
+
+    model = api.load_model("mvit_v2", seed=5, device=card, **_mvit_small("bfloat16"))
+
+    def counts():
+        return (att.biased_attention.calls, att.fused_attention.calls, att.plain_attention.calls,
+                mvit.mvit_pool.calls, mvit.rel_pos_bias.bytes)
+
+    before = counts()
+    _, logits = api.predict(model, _frames(20, (2, 4, 40, 40, 3), "cpu").numpy())
+    assert np.isfinite(logits).all()
+    got = tuple(b - a for a, b in zip(before, counts()))
+    assert got == (3, 0, 0, 9, 2 * (2 * 129 * 48 + 4 * 33 * 144 + 4 * 33 * 48))
+    q = torch.randn((2, 1, 20, 16), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bias_storage"):
+        att.pooled_attention(q, q[:, :, :7], q[:, :, :7],
+                             torch.zeros((2, 1, 20, 7), device=card, dtype=torch.bfloat16))

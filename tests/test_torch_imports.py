@@ -156,8 +156,8 @@ def test_cpu_fused_backbone_leaves_mbconv_counter_at_zero():
 
 def test_unported_names_and_backends_say_so():
     """Every config of the registry builds (``i3d``, ``two_stream`` and
-    TimeSformer-HR and Video Swin-B too, at full width); an unknown name or
-    backend raises."""
+    TimeSformer-HR, Video Swin-B and MViTv2-B too, at full width); an
+    unknown name or backend raises."""
     from asltpu_torch import api, native
     from asltpu_torch.config import CONFIG_REGISTRY, PreprocessConfig
     from asltpu_torch.data.decode import make_decode_pool
@@ -173,6 +173,9 @@ def test_unported_names_and_backends_say_so():
     assert [len(layer.blocks) for layer in swin.layers] == [2, 2, 18, 2]
     assert swin.layers[3].blocks[1].attn.relative_position_bias_table.shape == (2535, 32)
     assert swin.head.weight.shape == (2000, 1024)
+    mvit = built["mvit_v2"]
+    assert len(mvit.blocks) == 24 and mvit.blocks[21].attn.qkv.weight.shape == (3 * 768, 384)
+    assert mvit.head.projection.weight.shape == (2000, 768)
     assert api.build_module(api.get_config("pose_bilstm")).fc.out_features == 100
     with pytest.raises(KeyError):
         api.get_config("c3d")

@@ -299,7 +299,11 @@ def test_only_trainable_families_build_and_masters_are_fp32():
              "timesformer": dict(num_frames=4, embed_dim=32, depth=1, num_heads=4,
                                  preprocess={"num_frames": 4, "crop": 32}),
              "video_swin": dict(num_frames=4, embed_dim=32, depths=(2, 2), num_heads=(2, 4),
-                                window_size=(2, 4, 4), preprocess={"num_frames": 4, "crop": 32})}
+                                window_size=(2, 4, 4), preprocess={"num_frames": 4, "crop": 32}),
+             "mvit_v2": dict(num_frames=4, embed_dim=16, depth=2, dim_mul=((1, 2.0),),
+                             head_mul=((1, 2.0),), pool_q_stride=((0, 1, 1, 1), (1, 1, 2, 2)),
+                             pool_kv_stride_adaptive=(1, 2, 2),
+                             preprocess={"num_frames": 4, "crop": 32})}
     built = {"i3d"}
     for name, over in small.items():
         m = tapi.build_trainable(name, device="cpu", **{"num_classes": 5, **over})
@@ -309,8 +313,8 @@ def test_only_trainable_families_build_and_masters_are_fp32():
         assert m.cfg.compute_torch_dtype == want, name
         assert getattr(m.module, "dtype", torch.float32) == want, name
         built.add(name)
-    assert built == {"i3d", "pose_bilstm", "mobilenet_gru", "resnet_transformer",
-                     "two_stream", "timesformer", "video_swin"} and len(tapi.TRAINABLE) == 7
+    assert built == {"i3d", "pose_bilstm", "mobilenet_gru", "resnet_transformer", "two_stream",
+                     "timesformer", "video_swin", "mvit_v2"} and len(tapi.TRAINABLE) == 8
     cast = tapi.load_model("pose_bilstm", device="cpu", **POSE)
     tloop.create_train_state(cast.module, TrainConfig())  # pose stays fp32
     bf16 = tapi.load_model("i3d", device="cpu", num_classes=5)

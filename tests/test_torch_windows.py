@@ -255,7 +255,7 @@ def test_cli_predict_windows_prints_what_the_library_gives(session, capsys):
 
 # Argument sets refused before the model loads, in both CLIs (the JAX
 # one's message names its own module and server command, and its model
-# list lacks the port's own ``timesformer`` and ``video_swin``).
+# list lacks the port's own ``timesformer``, ``video_swin`` and ``mvit_v2``).
 CLI_REFUSALS = {
     "missing_clip": ["predict", "{missing}"],
     "fast_needs_av": ["predict", "{clip}", "--decode-fast", "--decode-backend", "process"],
@@ -279,6 +279,7 @@ def test_cli_checks_before_loading_fail_as_jax(session, tmp_path, case):
         tcli.main(argv + ["--device", "cpu"])
     expected = (str(want.value).replace("asltpu.windows", "asltpu_torch.windows")
                 .replace("on asl serve", "on the server")
+                .replace("mobilenet_gru, pose_bilstm", "mobilenet_gru, mvit_v2, pose_bilstm")
                 .replace("resnet_transformer, two_stream",
                          "resnet_transformer, timesformer, two_stream, video_swin"))
     assert str(got.value) == expected and expected.startswith("error: ")
